@@ -1,0 +1,10 @@
+"""qwen2-1.5b [dense]: 28L d=1536 12H (GQA kv=2) d_ff=8960 vocab=151936
+GQA with QKV bias; tied embeddings  [arXiv:2407.10671]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-1.5b", family="dense", num_layers=28, d_model=1536,
+    num_heads=12, num_kv_heads=2, d_ff=8960, vocab_size=151936,
+    head_dim=128, qkv_bias=True, ffn_type="swiglu", rope_theta=1e6,
+    tie_embeddings=True,
+)
