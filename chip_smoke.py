@@ -8,21 +8,32 @@ nonzero, printing no result, when CUDA is unavailable or the port's sources
 are missing.  Phases, one JSON line each:
 
   device       card name and power limit, torch/CUDA versions, and the
-               build of every kernel from the checkout's sources (nvcc,
-               sm_90a), with the compiler's register report;
+               build of every kernel from the checkout's sources (one nvcc
+               per kernel, all started together; sm_90a), with the
+               compiler's register report;
   kernels      each CUDA kernel held against its plain PyTorch version on
-               the card at the shapes the main path gives it, plus ragged
-               shapes: bit-exact on raw int32 and on the fused float32
-               epilogue, in exact and approximate modes;
+               the card at the shapes the main paths give it, plus ragged
+               shapes: the BitParticle matmul bit-exact (raw int32 and the
+               fused float32 epilogue, exact and approximate modes); paged
+               attention within 1e-5 in float32 on the reference's ragged
+               shapes and within one bf16 unit in the last place at
+               qwen2-1.5b's decode shape, plus a length-0 all-trash case;
   kernel_time  each kernel's median time (CUDA events, L2 flushed before
                each launch) beside its bound, its plain version's time and,
                where one exists, a PyTorch library call's time;
-  serve        the main path: ``ServingEngine.serve()`` on full-width,
-               full-depth qwen2-1.5b (random weights from a seed) in
-               bp_exact with an int8 KV cache on the slab store, greedy.
-               The launch counts are zeroed just before and read just
-               after; tokens must equal a serve with the plain-version
-               backend and ``generate()`` on the same prompts.
+  serve        the first main path: ``ServingEngine.serve()`` on
+               full-width, full-depth qwen2-1.5b (random weights from a
+               seed) in bp_exact with an int8 KV cache on the slab store,
+               greedy.  The launch counts are zeroed just before and read
+               just after; tokens must equal a serve with the plain-version
+               backend and ``generate()`` on the same prompts;
+  serve_paged  the second main path: the same model in bp_exact with a
+               bf16 KV cache on the paged store (block size 16, a pool
+               small enough to preempt), requests sharing a 256-token
+               system prompt.  Paged attention must launch once per layer
+               per decode step and the matmul 7 per layer per forward;
+               tokens must equal the plain-version serve and the slab serve
+               except for flips at argmax near-ties, each reported.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits 1.
@@ -49,6 +60,22 @@ QWEN_KN = ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536))
 RAGGED_MKN = ((8, 128, 128), (16, 256, 384), (256, 256, 256), (5, 33, 17),
               (1, 128, 1), (300, 520, 260))
 MODES = (("exact", False), ("approx", True))
+BF16_OPS_PER_S = 989e12
+
+# paged attention: the reference's ragged kernel-test shapes
+# (B, H, KH, D, n_blocks, block_size, pages_per_seq, lengths below)
+PA_RAGGED = ((1, 2, 1, 8, 6, 4, 4, 16), (3, 4, 2, 16, 12, 4, 5, 20),
+             (5, 6, 3, 32, 20, 8, 3, 24), (2, 8, 8, 16, 10, 2, 7, 14),
+             (4, 4, 1, 64, 16, 16, 2, 32))
+# qwen2-1.5b's decode attention: 12 query heads on 2 kv heads, head dim 128,
+# with the serve's block size
+QWEN_ATTN = {"H": 12, "KH": 2, "D": 128, "bs": 16}
+#: paged serve: pages in the pool, the trash page included.  Its requests
+#: hold up to 37 blocks at once with an unbounded pool (16 shared + up to 6
+#: private blocks per slot), so 35 allocatable blocks run dry and preempt
+#: (4 times on a CPU rehearsal of the same lengths and arrivals: the pool's
+#: decisions depend on them only); one request alone always fits.
+PAGED_NUM_BLOCKS = 36
 
 
 class CheckFailed(Exception):
@@ -128,26 +155,99 @@ def matmul_bound(m: int, k: int, n: int, approx: bool):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def attention_bound(lengths, n_heads: int, kv_heads: int, head_dim: int,
+                    block_size: int, pages_per_seq: int, esize: int = 2):
+    """(bound_ms, bound_by) of paged decode attention: the larger of bytes
+    over HBM rate (the valid K and V rows of every sequence, q, the output,
+    the tables and lengths, each once) and its flops (q.k and p.v, two per
+    multiply-add) over the bf16 tensor-core rate."""
+    B = len(lengths)
+    tokens = sum(min(int(n) + 1, pages_per_seq * block_size)
+                 for n in lengths)
+    nbytes = (2 * tokens * kv_heads * head_dim * esize
+              + 2 * B * n_heads * head_dim * esize
+              + 4 * B * pages_per_seq + 4 * B)
+    ops = 4 * tokens * n_heads * head_dim
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bf16_ulp(torch, x):
+    """One bf16 unit in the last place at each element's magnitude, not
+    below the unit at 2^-8: an output near zero is an average of O(1)
+    values that cancel, and there float32 summation order alone moves it by
+    more than a bf16 unit of its own tiny magnitude."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -8)))
+    return torch.pow(2.0, e - 7)
+
+
+def paged_case(torch, gen, B, H, KH, D, n_blocks, bs, pps, lengths, dtype):
+    """Random q and pages on the card, and per-sequence block tables over
+    random pages (distinct across sequences where the pool holds enough;
+    unused entries point at the trash page 0)."""
+    dev = "cuda"
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((n_blocks, bs, KH, D), generator=gen,
+                     device=dev).to(dtype)
+    vp = torch.randn((n_blocks, bs, KH, D), generator=gen,
+                     device=dev).to(dtype)
+    tables = torch.zeros((B, pps), dtype=torch.int32, device=dev)
+    distinct = B * pps <= n_blocks - 1
+    perm = torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1
+    for b, n in enumerate(lengths):
+        used = min(int(n) // bs + 1, pps)
+        if not distinct:
+            perm = torch.randperm(n_blocks - 1, generator=gen,
+                                  device=dev) + 1
+        start = b * pps if distinct else 0
+        tables[b, :used] = perm[start:start + used].to(torch.int32)
+    lens = torch.tensor([int(n) for n in lengths], dtype=torch.int32,
+                        device=dev)
+    return q, kp, vp, tables, lens
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
+KERNEL_SOURCES = {
+    "bp_matmul": "src/repro_torch/kernels/bitparticle_matmul/csrc/"
+                 "bp_matmul.cu",
+    "paged_attention": "src/repro_torch/kernels/paged_attention/csrc/"
+                       "paged_attention.cu",
+}
+
+
 def phase_device(torch, gpu):
-    from repro_torch.kernels.bitparticle_matmul import build
+    """Build every kernel library from the checkout, one nvcc each, all
+    started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.bitparticle_matmul import build as bp_build
+    from repro_torch.kernels.paged_attention import build as pa_build
+    libs = {"bp_matmul": bp_build.LIBRARY,
+            "paged_attention": pa_build.LIBRARY}
+
+    def load(lib):
+        t0 = time.perf_counter()
+        lib.load()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    build.library()
-    build_s = time.perf_counter() - t0
-    ptxas = sorted({ln.split(":", 1)[1].strip()
-                    for ln in build.last_build_log.splitlines()
-                    if "Used" in ln and ":" in ln})
+    with ThreadPoolExecutor(len(libs)) as pool:
+        secs = dict(zip(libs, pool.map(load, libs.values())))
+    builds = []
+    for name, lib in libs.items():
+        builds.append({
+            "name": name, "source": KERNEL_SOURCES[name],
+            "nvcc_s": lib.last_build_s, "build_and_load_s": secs[name],
+            "ptxas": sorted({ln.split(":", 1)[1].strip()
+                             for ln in lib.last_build_log.splitlines()
+                             if "Used" in ln and ":" in ln})})
     emit({"phase": "device", "gpu": gpu, "torch": torch.__version__,
-          "cuda": torch.version.cuda,
-          "kernel_builds": [{"name": "bp_matmul",
-                             "source": "src/repro_torch/kernels/"
-                                       "bitparticle_matmul/csrc/bp_matmul.cu",
-                             "nvcc_s": build.last_build_s,
-                             "build_and_load_s": build_s}],
-          "ptxas": ptxas})
+          "cuda": torch.version.cuda, "kernel_builds": builds,
+          "all_builds_s": time.perf_counter() - t0})
 
 
 def _rand_case(torch, gen, m, k, n):
@@ -163,6 +263,15 @@ def _rand_case(torch, gen, m, k, n):
 
 
 def phase_kernels(torch, gpu):
+    entries = [check_bp_matmul(torch), check_paged_attention(torch)]
+    emit({"phase": "kernels", "gpu": gpu, "kernels": entries})
+    for e in entries:
+        check(not e["failures"], f"{e['name']} disagrees with its plain "
+                                 f"version on {len(e['failures'])} cases: "
+                                 f"{e['failures'][:3]}")
+
+
+def check_bp_matmul(torch):
     from repro_torch.kernels.bitparticle_matmul.ops import bp_matmul
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = [(m, k, n) for m in (1, 4, 8, 256) for k, n in QWEN_KN]
@@ -184,14 +293,63 @@ def phase_kernels(torch, gpu):
                                                               want_f)):
                 failures.append({"m": m, "k": k, "n": n, "mode": name,
                                  "int_err": err_i, "f32_err": err_f})
-    emit({"phase": "kernels", "gpu": gpu,
-          "kernels": [{"name": "bp_matmul", "cases": n_cases,
-                       "tolerance": "bit-exact (int32 and float32)",
-                       "max_abs_err": max_err,
-                       "parity": "ok" if not failures else "FAILED",
-                       "failures": failures[:10]}]})
-    check(not failures, f"bp_matmul disagrees with its plain version on "
-                        f"{len(failures)} cases: {failures[:3]}")
+    return {"name": "bp_matmul", "cases": n_cases,
+            "tolerance": "bit-exact (int32 and float32)",
+            "max_abs_err": max_err,
+            "parity": "ok" if not failures else "FAILED",
+            "failures": failures[:10]}
+
+
+def check_paged_attention(torch):
+    """The paged-attention kernel against its plain version: float32 on the
+    reference's ragged shapes (atol = rtol = 1e-5, that test's own), bf16 at
+    qwen2-1.5b's decode shape (one bf16 unit in the last place, see
+    ``bf16_ulp``), and length-0 slots whose tables are all trash."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    H, KH, D, bs = (QWEN_ATTN[k] for k in ("H", "KH", "D", "bs"))
+    cases = []
+    for B, h, kh, d, nb, b_s, pps, t_hi in PA_RAGGED:
+        lengths = torch.randint(0, t_hi, (B,), generator=gen,
+                                device="cuda").tolist()
+        cases.append((f"ragged B{B} H{h} KH{kh} D{d} bs{b_s}", "float32",
+                      paged_case(torch, gen, B, h, kh, d, nb, b_s, pps,
+                                 lengths, torch.float32)))
+    pps = 32
+    for B in (1, 4, 32):
+        lengths = torch.randint(0, bs * pps, (B,), generator=gen,
+                                device="cuda").tolist()
+        cases.append((f"qwen2 decode B{B}", "bfloat16",
+                      paged_case(torch, gen, B, H, KH, D, B * pps + 1, bs,
+                                 pps, lengths, torch.bfloat16)))
+    for dtype, name in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bfloat16")):
+        # a 16-page table: the kernel splits it over two blocks, and the
+        # second has no valid position
+        q, kp, vp, tables, lens = paged_case(torch, gen, 4, H, KH, D, 9, bs,
+                                             16, [0] * 4, dtype)
+        cases.append((f"length 0, all-trash tables, {name}", name,
+                      (q, kp, vp, torch.zeros_like(tables), lens)))
+    max_err, failures = 0.0, []
+    for label, kind, args in cases:
+        got = paged_attention(*args, backend="kernel")
+        want = paged_attention(*args, backend="plain")
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        max_err = max(max_err, err.max().item())
+        if kind == "float32":
+            ok = torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+        else:
+            ok = bool((err <= bf16_ulp(torch, want)).all())
+        ok = ok and bool(torch.isfinite(got).all())
+        if not ok:
+            failures.append({"case": label, "max_abs_err": err.max().item()})
+    return {"name": "paged_attention", "cases": len(cases),
+            "tolerance": "float32: atol = rtol = 1e-5; bfloat16: one bf16 "
+                         "unit in the last place (at magnitudes >= 2^-8)",
+            "max_abs_err": max_err,
+            "parity": "ok" if not failures else "FAILED",
+            "failures": failures[:10]}
 
 
 def _library_int_mm(torch, a, w):
@@ -232,7 +390,60 @@ def phase_kernel_time(torch, gpu, flush):
     emit({"phase": "kernel_time", "gpu": gpu, "kernel": "bp_matmul",
           "library": "torch._int_mm (exact mode, M > 16 only)",
           "rows": rows})
-    return rows
+    pa_rows = [time_paged_case(torch, flush, gen, B, [L - 1] * B)
+               for B in (4, 32) for L in (128, 512, 2048, 8192)]
+    emit({"phase": "kernel_time", "gpu": gpu, "kernel": "paged_attention",
+          "shape": "qwen2-1.5b decode: H 12, KH 2, D 128, block size 16, "
+                   "bf16; every sequence at the same length",
+          "library": "torch.nn.functional.scaled_dot_product_attention "
+                     "(enable_gqa) on K/V gathered dense beforehand",
+          "rows": pa_rows})
+    return rows + pa_rows
+
+
+def _sdpa_on_gathered(torch, q, kp, vp, tables, lens):
+    """One PyTorch call computing the same function on the same inputs, as
+    a timed yardstick: scaled_dot_product_attention with GQA over the
+    sequences' K/V gathered dense (outside the timed call), masked at each
+    sequence's length where they differ.  The port never calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ref import gather_pages
+    kd = gather_pages(kp, tables).transpose(1, 2).contiguous()  # B KH T D
+    vd = gather_pages(vp, tables).transpose(1, 2).contiguous()
+    qd = q[:, :, None, :]
+    T = kd.shape[2]
+    mask = None
+    if bool((lens != lens[0]).any()) or int(lens[0]) + 1 < T:
+        pos = torch.arange(T, device=q.device)
+        mask = (pos[None, :] <= lens[:, None].long())[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def time_paged_case(torch, flush, gen, B, lengths, pps=None):
+    """Median times of paged attention at qwen2-1.5b's decode shape with
+    the given lengths (inclusive last positions): the kernel, its plain
+    version and the library yardstick, beside the bound."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    H, KH, D, bs = (QWEN_ATTN[k] for k in ("H", "KH", "D", "bs"))
+    if pps is None:
+        pps = max(int(n) for n in lengths) // bs + 1
+    args = paged_case(torch, gen, B, H, KH, D, B * pps + 1, bs, pps, lengths,
+                      torch.bfloat16)
+    got = paged_attention(*args, backend="kernel")
+    want = paged_attention(*args, backend="plain")
+    row = {"B": B, "lengths": [int(n) for n in lengths][:8],
+           "pages_per_seq": pps,
+           "max_abs_err": (got.float() - want.float()).abs().max().item()}
+    row["ms"] = time_ms(torch, lambda: paged_attention(
+        *args, backend="kernel"), flush)
+    row["plain_ms"] = time_ms(torch, lambda: paged_attention(
+        *args, backend="plain"), flush, iters=10)
+    row["library_ms"] = time_ms(torch, _sdpa_on_gathered(torch, *args),
+                                flush)
+    row["bound_ms"], row["bound_by"] = attention_bound(lengths, H, KH, D, bs,
+                                                       pps)
+    return row
 
 
 def _requests(serving, rng, vocab: int, n: int):
@@ -246,25 +457,35 @@ def _requests(serving, rng, vocab: int, n: int):
     return reqs
 
 
-def phase_serve(torch, gpu, n_requests=8, n_slots=4, lead_window=4):
-    import numpy as np
-
-    from repro_torch import serving
+def build_model(torch):
+    """Full-width, full-depth qwen2-1.5b in bp_exact: random weights from
+    seed 0, every dense weight quantized to int8 once.  Both serve phases
+    share them (the KV-cache layout is a serving choice, not a weight)."""
     from repro_torch.configs.base import get_arch
-    from repro_torch.kernels.bitparticle_matmul import ops
     from repro_torch.models import api
     from repro_torch.models.layers import quantize_dense_params
 
-    cfg = get_arch("qwen2-1.5b").replace(matmul_mode="bp_exact",
-                                         kv_cache_int8=True)
+    cfg = get_arch("qwen2-1.5b").replace(matmul_mode="bp_exact")
     t0 = time.perf_counter()
     with torch.no_grad():
         params = quantize_dense_params(api.init(cfg, seed=0, device="cuda"))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    init_s = time.perf_counter() - t0
-    weight_bytes = sum(t.numel() * t.element_size()
-                       for t in _leaves(params))
+    return {"cfg": cfg, "params": params,
+            "init_and_quantize_s": time.perf_counter() - t0,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(params))}
+
+
+def phase_serve(torch, gpu, model, n_requests=8, n_slots=4, lead_window=4):
+    import numpy as np
+
+    from repro_torch import serving
+    from repro_torch.kernels.bitparticle_matmul import ops
+
+    cfg = model["cfg"].replace(kv_cache_int8=True)
+    params = model["params"]
+    init_s, weight_bytes = model["init_and_quantize_s"], model["param_bytes"]
     scfg = serving.ServeConfig(max_new_tokens=32, temperature=0.0)
     engine = serving.ServingEngine(cfg, params, scfg, device="cuda")
     sched = serving.SchedulerConfig(lead_window=lead_window)
@@ -285,6 +506,7 @@ def phase_serve(torch, gpu, n_requests=8, n_slots=4, lead_window=4):
     torch.cuda.synchronize()
 
     # -- the measured main-path run: counts zeroed just before, read after
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     loop = engine.make_loop(fresh(), n_slots=n_slots, cache_T=cache_T,
                             sched_cfg=sched)
@@ -371,12 +593,186 @@ def phase_serve(torch, gpu, n_requests=8, n_slots=4, lead_window=4):
     return result, launches
 
 
-def _profile_serve(torch, engine, requests, n_slots, cache_T, sched):
+def _paged_requests(serving, rng, vocab: int, n: int, system_len=256):
+    """``n`` requests sharing one ``system_len``-token system prompt, each
+    with 16-128 tokens of its own and 8-32 new tokens, arriving every two
+    decode steps."""
+    import numpy as np
+    system = rng.integers(2, vocab, size=system_len)
+    reqs = []
+    for i in range(n):
+        own = rng.integers(2, vocab, size=int(rng.integers(16, 129)))
+        reqs.append(serving.Request(
+            prompt=np.concatenate([system, own]).astype("int32"),
+            max_new_tokens=int(rng.integers(8, 33)),
+            arrival_time=float(2 * i)))
+    return reqs
+
+
+def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
+                      lead_window=4, block_size=16,
+                      num_blocks=PAGED_NUM_BLOCKS):
+    """The paged main path: bp_exact with a bf16 KV cache (an int8 cache
+    would route attention to the plain gather, as the reference does), so
+    every decode step's attention runs the paged-attention kernel and every
+    projection the BitParticle matmul."""
+    import numpy as np
+
+    from repro_torch import serving
+    from repro_torch.kernels.bitparticle_matmul import ops as bp_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+
+    cfg = model["cfg"].replace(kv_cache_int8=False)
+    params = model["params"]
+
+    def engine_for(c, backend="paged"):
+        return serving.ServingEngine(
+            c, params, serving.ServeConfig(max_new_tokens=32,
+                                           temperature=0.0,
+                                           cache_backend=backend,
+                                           block_size=block_size),
+            device="cuda")
+
+    def reset():
+        bp_ops.reset_launches()
+        pa_ops.reset_launches()
+
+    def counts():
+        return {"bp_matmul": bp_ops.LAUNCHES["bp_matmul"],
+                "paged_attention": pa_ops.LAUNCHES["paged_attention"],
+                "routed_plain_int8_kv": pa_ops.ROUTED_PLAIN["int8_kv"]}
+
+    engine = engine_for(cfg)
+    sched = serving.SchedulerConfig(lead_window=lead_window)
+    prompts = _paged_requests(serving, np.random.default_rng(1),
+                              cfg.vocab_size, n_requests)
+
+    def fresh():
+        return [serving.Request(prompt=r.prompt.copy(),
+                                max_new_tokens=r.max_new_tokens,
+                                arrival_time=r.arrival_time, request_id=i)
+                for i, r in enumerate(prompts)]
+
+    cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
+    kw = dict(n_slots=n_slots, cache_T=cache_T, sched_cfg=sched)
+    # warm-up serve (allocator): not measured
+    engine.serve(fresh()[:2], num_blocks=num_blocks, **kw)
+    torch.cuda.synchronize()
+
+    # -- the measured main-path run: counts zeroed just before, read after
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    loop = engine.make_loop(fresh(), num_blocks=num_blocks, **kw)
+    # per-slot positions at every decode step (the kernels line's shape)
+    step_lengths = []
+    loop.on_step_end = lambda lp: step_lengths.append(
+        lp.cm.cache_len_vector().tolist())
+    report = loop.run()
+    torch.cuda.synchronize()
+    launches = counts()
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_prefill = sum(1 for r in loop.stream if r["kind"] == "prefill")
+    step_ms = [1e3 * r["wall_s"] for r in loop.stream
+               if r["kind"] == "decode"]
+    toks = {r.request_id: r.tokens.tolist() for r in report.results}
+    expected = {"bp_matmul": 7 * cfg.num_layers * (n_prefill + report.steps),
+                "paged_attention": cfg.num_layers * report.steps}
+
+    # -- the same serve through the plain versions of both kernels, and the
+    # slab store with the same bf16 KV cache
+    reset()
+    rep_plain = engine_for(cfg.replace(matmul_backend="plain")).serve(
+        fresh(), num_blocks=num_blocks, **kw)
+    plain_launches = counts()
+    reset()
+    rep_slab = engine_for(cfg, backend="slab").serve(fresh(), **kw)
+    reset()
+    flips = {}
+    for name, rep in (("plain", rep_plain), ("slab", rep_slab)):
+        other = {r.request_id: r.tokens.tolist() for r in rep.results}
+        flips[name] = [
+            _flip(torch, np, engine, prompts[i].prompt, toks[i], other[i],
+                  cache_T, i, names=("paged", name))
+            for i in toks if other[i] != toks[i]]
+    profile = _profile_serve(
+        torch, engine, [serving.Request(prompt=r.prompt.copy(),
+                                        max_new_tokens=8,
+                                        arrival_time=r.arrival_time)
+                        for r in prompts[:2]], n_slots, cache_T, sched,
+        num_blocks=num_blocks)
+    reset()
+
+    p = serving.percentiles(step_ms, qs=(50, 90))
+    result = {
+        "phase": "serve_paged", "gpu": gpu, "model": cfg.name,
+        "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "mode": cfg.matmul_mode, "kv_cache_int8": cfg.kv_cache_int8,
+        "cache_backend": "paged", "block_size": block_size,
+        "num_blocks": num_blocks,
+        "blocks_per_seq": loop.cm.blocks_per_seq,
+        "n_requests": n_requests, "system_prompt_tokens": 256,
+        "n_slots": n_slots, "lead_window": lead_window, "cache_T": cache_T,
+        "prefill_calls": n_prefill, "decode_steps": report.steps,
+        "total_new_tokens": report.total_new_tokens,
+        "launches": launches, "expected_launches": expected,
+        "plain_backend_launches": plain_launches,
+        "n_preemptions": report.n_preemptions,
+        "prefix_hit_blocks": report.prefix_hit_blocks,
+        "cow_blocks": report.cow_blocks,
+        "peak_blocks_in_use": report.peak_blocks_in_use,
+        "tokens_equal_plain_backend": not flips["plain"],
+        "plain_flips": flips["plain"],
+        "tokens_equal_slab": not flips["slab"],
+        "slab_flips": flips["slab"],
+        "decode_tokens_per_s": report.decode_tokens_per_s,
+        "decode_step_ms_p50": p["p50"] if p else None,
+        "decode_step_ms_p90": p["p90"] if p else None,
+        "prefill_s": report.prefill_s, "decode_s": report.decode_s,
+        "peak_mem_gb": peak_mem_gb,
+        "first_tokens": toks[0][:8],
+        "profile": profile,
+    }
+    emit(result)
+    check(all(r.finish_reason == "length" for r in report.results),
+          "a paged request finished for another reason than length")
+    check(all(0 <= t < cfg.vocab_padded for ts in toks.values() for t in ts),
+          "a generated token lies outside the padded vocabulary")
+    for name, want in expected.items():
+        check(launches[name] == want,
+              f"{name} launched {launches[name]} times on the paged path, "
+              f"expected {want}")
+    check(launches["routed_plain_int8_kv"] == 0,
+          "paged attention was routed to the plain version")
+    check(plain_launches["bp_matmul"] == plain_launches["paged_attention"]
+          == 0, "the plain backend launched a kernel")
+    check(report.prefix_hit_blocks > 0, "no prefix-sharing hit")
+    check(report.n_preemptions >= 1, f"the pool of {num_blocks} blocks "
+                                     f"never ran dry")
+    for name, fl in flips.items():
+        bad = [f for f in fl if not f["near_tie"]]
+        check(not bad, f"paged and {name} serves differ beyond a near-tie: "
+                       f"{bad}")
+    # the kernels line's shape: the decode step whose total context is the
+    # median of the run's full-batch steps
+    full = [ls for ls in step_lengths if min(ls) > 0] or step_lengths
+    shape = sorted(full, key=sum)[len(full) // 2]
+    return result, launches, {"lengths": shape,
+                              "pages_per_seq": loop.cm.blocks_per_seq}
+
+
+#: device-kernel name fragments of each of the port's CUDA kernels
+KERNEL_SYMBOLS = {"bp_matmul": ("bp_gemv", "bp_tile"),
+                  "paged_attention": ("paged_attention_kernel",
+                                      "merge_kernel")}
+
+
+def _profile_serve(torch, engine, requests, n_slots, cache_T, sched,
+                   **serve_kw):
     """Where a serve's time goes: one more serve of ``requests`` under
     ``torch.profiler``, reduced to device-busy time against wall time, the
-    number of kernels launched, and the kernels that take the most device
-    time.  The profiler slows the host, so ``idle_share`` is an
-    upper bound on the unprofiled run's."""
+    number of kernels launched, each of the port's kernels' device time,
+    and the kernels that take the most device time.  The profiler slows
+    the host, so ``idle_share`` is an upper bound on the unprofiled run's."""
     from torch.profiler import ProfilerActivity, profile
 
     def device_us(ev):
@@ -388,7 +784,7 @@ def _profile_serve(torch, engine, requests, n_slots, cache_T, sched):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rep = engine.serve(requests, n_slots=n_slots, cache_T=cache_T,
-                           sched_cfg=sched)
+                           sched_cfg=sched, **serve_kw)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
@@ -396,24 +792,27 @@ def _profile_serve(torch, engine, requests, n_slots, cache_T, sched):
                and device_us(e) > 0]
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
     n_kernels = sum(e.count for e in kernels)
-    bp = [e for e in kernels if "bp_gemv" in e.key or "bp_tile" in e.key]
+    ours = {name: sum(device_us(e) for e in kernels
+                      if any(sym in e.key for sym in syms)) / 1e3
+            for name, syms in KERNEL_SYMBOLS.items()}
     top = sorted(kernels, key=device_us, reverse=True)[:6]
     return {"requests": len(requests), "decode_steps": rep.steps,
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "kernels": n_kernels,
-            "bp_matmul_device_ms": sum(device_us(e) for e in bp) / 1e3,
+            **{f"{name}_device_ms": ms for name, ms in ours.items()},
             "top_kernels": [{"name": e.key[:60], "count": e.count,
                              "device_ms": device_us(e) / 1e3}
                             for e in top]}
 
 
-def _flip(torch, np, engine, prompt, serve_toks, gen_toks, cache_T, rid):
+def _flip(torch, np, engine, prompt, serve_toks, gen_toks, cache_T, rid,
+          names=("serve", "generate")):
     """Where two token streams first part: the position, both tokens, and
     the top-2 margin of a fresh single-request prefill of the prompt plus
     the shared prefix.  It is a near-tie when both tokens' logits lie
     within 4 bf16 units in the last place (at the top logit's magnitude)
-    of the top logit."""
+    of the top logit.  ``names`` label the two streams."""
     j = next(k for k in range(min(len(serve_toks), len(gen_toks)))
              if serve_toks[k] != gen_toks[k])
     seq = np.concatenate([prompt, np.asarray(serve_toks[:j], np.int32)])
@@ -423,9 +822,10 @@ def _flip(torch, np, engine, prompt, serve_toks, gen_toks, cache_T, rid):
     ulp = 2.0 ** (int(np.floor(np.log2(abs(top[0]) + 1e-30))) - 7)
     margin = top[0] - top[1]
     l_s, l_g = lg[serve_toks[j]].item(), lg[gen_toks[j]].item()
-    return {"request": rid, "position": j, "serve_token": serve_toks[j],
-            "generate_token": gen_toks[j],
-            "logit_serve_token": l_s, "logit_generate_token": l_g,
+    a, b = names
+    return {"request": rid, "position": j, f"{a}_token": serve_toks[j],
+            f"{b}_token": gen_toks[j],
+            f"logit_{a}_token": l_s, f"logit_{b}_token": l_g,
             "top2_margin": margin, "bf16_ulp": ulp,
             "near_tie": top[0] - min(l_s, l_g) <= 4 * ulp}
 
@@ -475,6 +875,29 @@ def decode_layer_summary(torch, flush, n_slots, launches):
                      f"(decode), exact mode; torch._int_mm refuses M <= 16"}
 
 
+def paged_layer_summary(torch, flush, paged_shape, launches):
+    """The kernels line's numbers for paged attention: one decoder layer's
+    call at the paged serve's decode shape (its slots, table width and the
+    per-slot positions of its median full-batch step), timed in this run
+    beside the plain version, the library yardstick and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lengths = paged_shape["lengths"]
+    row = time_paged_case(torch, flush, gen, len(lengths), lengths,
+                          pps=paged_shape["pages_per_seq"])
+    return {"name": "paged_attention", "route": "cuda",
+            "source": KERNEL_SOURCES["paged_attention"],
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:96",
+            "launches": launches["paged_attention"],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": f"one decoder layer at the paged serve's decode shape: "
+                     f"B={len(lengths)}, H 12, KH 2, D 128, block 16, "
+                     f"{row['pages_per_seq']} pages per table, positions "
+                     f"{row['lengths']}, bf16; library: SDPA (enable_gqa) "
+                     f"on K/V gathered dense beforehand"}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--details", default=None, metavar="PATH",
@@ -504,12 +927,21 @@ def main() -> int:
         phase_kernels(torch, gpu)
         flush = Flusher(torch)
         records.append({"kernel_time": phase_kernel_time(torch, gpu, flush)})
-        serve, launches = phase_serve(torch, gpu)
+        model = build_model(torch)
+        serve, launches = phase_serve(torch, gpu, model)
         records.append({"serve": serve})
-        summary = decode_layer_summary(torch, flush, serve["n_slots"],
-                                       launches)
-        check(summary["launches"] > 0,
-              "bp_matmul was never launched on the main path")
+        paged, paged_launches, paged_shape = phase_serve_paged(torch, gpu,
+                                                               model)
+        records.append({"serve_paged": paged})
+        del model
+        bp = decode_layer_summary(torch, flush, serve["n_slots"], launches)
+        bp["launches_by_path"] = {"serve": launches["bp_matmul"],
+                                  "serve_paged": paged_launches["bp_matmul"]}
+        pa = paged_layer_summary(torch, flush, paged_shape, paged_launches)
+        summary = [bp, pa]
+        for k in summary:
+            check(k["launches"] > 0,
+                  f"{k['name']} was never launched on its main path")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -518,9 +950,9 @@ def main() -> int:
     if args.details:
         pathlib.Path(args.details).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.details).write_text(json.dumps(
-            {"gpu": gpu, "records": records, "kernels": [summary]},
+            {"gpu": gpu, "records": records, "kernels": summary},
             indent=1))
-    emit({"kernels": [summary]})
+    emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@
     decode_step(params, cfg, batch) -> (logits, cache)
     verify_step(params, cfg, batch) -> (logits (B, S, V), cache)
 
-plus the slab cache helpers the serving engine uses.  Families other than
-dense raise ``NotImplementedError``.
+    decode_step_paged / verify_step_paged(params, cfg, batch) -> ...
+
+plus the slab and block-paged cache helpers the serving engine uses.
+Families other than dense raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import causal_lm
+from repro_torch.models import causal_lm, layers
 
 
 def _module(cfg):
@@ -48,6 +50,18 @@ def decode_step(params, cfg, batch):
 
 def verify_step(params, cfg, batch):
     return _module(cfg).verify_step(params, cfg, batch)
+
+
+def decode_step_paged(params, cfg, batch):
+    """Block-paged decode (``batch`` carries ``block_tables`` + per-slot
+    ``cache_len``)."""
+    return _module(cfg).decode_step_paged(params, cfg, batch)
+
+
+def verify_step_paged(params, cfg, batch):
+    """Block-paged multi-token verify (``batch`` carries
+    ``block_tables``); see :func:`verify_step`."""
+    return _module(cfg).verify_step_paged(params, cfg, batch)
 
 
 def cache_specs(cfg, B: int, cache_T: int
@@ -86,3 +100,50 @@ def slot_extract(cfg, pool_cache, slot: int):
     """Slot ``slot`` of the pooled cache as a batch-1 cache (a copy)."""
     return {name: pool_cache[name].narrow(ax, slot, 1).clone()
             for name, ax in cache_batch_axes(cfg).items()}
+
+
+# ---------------------------------------------------------------------------
+# Block-paged decode caches (paged cache backend)
+# ---------------------------------------------------------------------------
+
+def paged_cache_specs(cfg, num_blocks: int, block_size: int
+                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{leaf name: (shape, dtype)} of the block-paged decode cache: every KV
+    leaf is (L, num_blocks, block_size, KH, hd), plus (L, num_blocks,
+    block_size, KH) float32 scales with ``kv_cache_int8``."""
+    _module(cfg)
+    kv = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+          cfg.resolved_head_dim)
+    if cfg.kv_cache_int8:
+        sc = kv[:-1]
+        return {"k": (kv, torch.int8), "k_scale": (sc, torch.float32),
+                "v": (kv, torch.int8), "v_scale": (sc, torch.float32)}
+    return {"k": (kv, layers.DTYPE), "v": (kv, layers.DTYPE)}
+
+
+def zeros_paged_cache(cfg, num_blocks: int, block_size: int, device):
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, (shape, dtype)
+            in paged_cache_specs(cfg, num_blocks, block_size).items()}
+
+
+def paged_insert(cfg, pages, src_cache, block_ids: torch.Tensor,
+                 src_index: int = 0):
+    """Scatter request ``src_index`` of a prefill cache (padded to
+    ``len(block_ids) * block_size`` positions) into physical pages, IN
+    PLACE; returns ``pages``.
+
+    ``block_ids`` (P,): logical block i of the sequence lands in physical
+    page ``block_ids[i]``.  Blocks that must NOT be written (prefix-sharing
+    hits) are redirected to the trash page (id 0) by the caller."""
+    ids = block_ids.long()
+    P = ids.shape[0]
+    for name, page in pages.items():
+        row = src_cache[name][:, src_index]          # (L, T, ...)
+        L, T = row.shape[0], row.shape[1]
+        if T != P * page.shape[2]:
+            raise ValueError(f"cache leaf {name!r}: prefill length {T} is "
+                             f"not {P} blocks of {page.shape[2]}")
+        page[:, ids] = row.reshape(L, P, T // P,
+                                   *row.shape[2:]).to(page.dtype)
+    return pages

@@ -74,8 +74,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask &= qpos[:, None] >= kpos[None, :]
         if kv_len is not None:
             mask &= kpos[None, :] < kv_len
-        s = torch.where(mask[None, :, None, None, :], s,
-                        torch.tensor(NEG_INF, device=dev))
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -119,7 +118,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     else:
         lim = cl[:, None] + torch.arange(S, device=dev)[None, :]   # (B, S)
         valid = (t[None, None, :] <= lim[:, :, None])[:, :, None, None, :]
-    s = torch.where(valid, s, torch.tensor(NEG_INF, device=dev))
+    s = torch.where(valid, s, NEG_INF)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e / e.sum(dim=-1, keepdim=True)
     if v_scale is not None:
@@ -176,6 +175,47 @@ def write_kv(cache: torch.Tensor, new: torch.Tensor,
     keep = (pos >= 0) & (pos < T)
     cache[bidx[:, None].expand(B, S)[keep], pos[keep]] = new[keep]
     return cache
+
+
+def paged_write_kv(pages: torch.Tensor, new: torch.Tensor,
+                   block_ids: torch.Tensor,
+                   offsets: torch.Tensor) -> torch.Tensor:
+    """Write ``new`` (B, S, ...) into block-paged ``pages`` (N, bs, ...) IN
+    PLACE at per-(sequence, row) (physical block, in-block offset)
+    positions, both (B, S), and return ``pages``.  Inactive rows and
+    speculative overhang past a slot's block table target the trash block
+    (id 0): written, never read, so duplicate indices there are harmless."""
+    pages[block_ids, offsets] = new.to(pages.dtype)
+    return pages
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_tables, cache_len, *,
+                           k_scale=None, v_scale=None) -> torch.Tensor:
+    """Multi-token verify attention over block-paged KV: gather each slot's
+    pages dense through its block table, then the causal-wedge masking of
+    :func:`decode_attention`.  The decode kernel takes one query row, so
+    the S > 1 path has no kernel."""
+    from repro_torch.kernels.paged_attention.ref import gather_pages
+
+    def lin(p):
+        return None if p is None else gather_pages(p, block_tables)
+
+    return decode_attention(q, lin(k_pages), lin(v_pages), cache_len,
+                            k_scale=lin(k_scale), v_scale=lin(v_scale))
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, cache_len, *,
+                           k_scale=None, v_scale=None,
+                           backend: str = "auto") -> torch.Tensor:
+    """q (B,1,H,D) against block-paged K/V (N, bs, KH, D) through per-slot
+    block tables (B, P); positions <= cache_len valid, exactly as
+    :func:`decode_attention`.  Dispatches to the paged-attention CUDA kernel
+    or its plain version per ``backend`` (the config's matmul backend)."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    out = paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
+                          block_tables, cache_len, k_scale_pages=k_scale,
+                          v_scale_pages=v_scale, backend=backend)
+    return out[:, None]
 
 
 def quantize_kv(k: torch.Tensor, v: torch.Tensor):

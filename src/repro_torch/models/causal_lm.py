@@ -4,9 +4,10 @@
 Layer parameters are stacked on a leading L axis exactly as the reference's
 ``lax.scan`` layout; the forward pass is a Python loop over that axis.  The
 slab KV cache leaves are (L, B, T, KH, hd) (+ (L, B, T, KH) float32 scales
-with ``kv_cache_int8``); the decode and verify steps write the new tokens'
-K/V into the given cache IN PLACE (the reference donates the buffer and gets
-a new one back) and return it.
+with ``kv_cache_int8``), the block-paged ones (L, num_blocks, block_size,
+KH, hd) (+ scales) addressed through per-slot block tables; the decode and
+verify steps write the new tokens' K/V into the given cache IN PLACE (the
+reference donates the buffer and gets a new one back) and return it.
 """
 
 from __future__ import annotations
@@ -180,6 +181,40 @@ def _slab_fns(batch):
     return write_fn, attend_fn
 
 
+def _paged_fns(cfg, batch):
+    """(write_fn, attend_fn) over the block-paged layout.  Write targets
+    past a slot's table span are redirected to the trash block (speculative
+    overhang lands nowhere); the S = 1 attend dispatches to the
+    paged-attention kernel or its plain version per ``cfg.matmul_backend``,
+    S > 1 takes the dense-gather verify formulation."""
+    tables = batch["block_tables"]
+    dev = tables.device
+    cache_len = torch.as_tensor(batch["cache_len"], device=dev)
+    lens32 = cache_len.to(torch.int32)
+    bs = batch["cache"]["k"].shape[2]
+    S = batch["tokens"].shape[1]
+    P = tables.shape[1]
+    # physical write target per (slot, row): table entry at pos // bs
+    pos = cache_len[:, None].long() + torch.arange(S, device=dev)[None, :]
+    bi = pos // bs
+    blk = torch.gather(tables.long(), 1, torch.clamp(bi, max=P - 1))
+    blk = torch.where(bi < P, blk, torch.zeros_like(blk))  # overhang: trash
+    off = pos % bs
+
+    def write_fn(c, new):
+        return attention.paged_write_kv(c, new, blk, off)
+
+    def attend_fn(q, kc, vc, ksc, vsc):
+        if S == 1:
+            return attention.paged_decode_attention(
+                q, kc, vc, tables, lens32, k_scale=ksc, v_scale=vsc,
+                backend=cfg.matmul_backend)
+        return attention.paged_verify_attention(
+            q, kc, vc, tables, cache_len, k_scale=ksc, v_scale=vsc)
+
+    return write_fn, attend_fn
+
+
 def decode_step(params, cfg, batch):
     """One-token decode.  batch: tokens (B,1), cache (slab, updated in
     place), cache_len: int (whole batch at one depth) or (B,) tensor.
@@ -194,5 +229,29 @@ def verify_step(params, cfg, batch):
     """Multi-token append at per-slot positions ``cache_len ..
     cache_len + S - 1`` in one pass.  Returns (logits (B, S, V), cache)."""
     write_fn, attend_fn = _slab_fns(batch)
+    return _decode_common(params, cfg, batch, write_fn=write_fn,
+                          attend_fn=attend_fn)
+
+
+def decode_step_paged(params, cfg, batch):
+    """One-token decode against a block-paged KV cache.
+
+    batch: tokens (B, 1); cache {k, v[, k_scale, v_scale]} with KV paged as
+    (L, num_blocks, block_size, KH, hd), updated in place; block_tables
+    (B, P) int32 physical page ids on the device; cache_len (B,) per-slot
+    positions.  The new token's K/V is scattered to (table[pos // bs],
+    pos % bs) per slot, and attention gathers through the block table.
+    Returns (logits (B, V), cache)."""
+    write_fn, attend_fn = _paged_fns(cfg, batch)
+    logits, cache = _decode_common(params, cfg, batch, write_fn=write_fn,
+                                   attend_fn=attend_fn)
+    return logits[:, 0], cache
+
+
+def verify_step_paged(params, cfg, batch):
+    """Multi-token append against the block-paged cache: the
+    :func:`verify_step` contract with ``block_tables`` routing the writes
+    and the dense-gather verify attention."""
+    write_fn, attend_fn = _paged_fns(cfg, batch)
     return _decode_common(params, cfg, batch, write_fn=write_fn,
                           attend_fn=attend_fn)

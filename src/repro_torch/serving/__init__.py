@@ -1,8 +1,10 @@
-"""Quasi-synchronous serving subsystem, slab slice (port of
+"""Quasi-synchronous serving subsystem, slab and paged slices (port of
 ``repro/serving``): slots ~ synchronization groups, the admission queue ~
 operand queues, and the scheduler's lead window ~ the inter-group
 elasticity parameter E."""
 
+from repro_torch.serving.block_pool import (TRASH_BLOCK, BlockPool,
+                                           NoFreeBlocks, PagedCacheManager)
 from repro_torch.serving.cache_manager import (BaseCacheManager, CacheManager,
                                                make_cache_manager)
 from repro_torch.serving.engine import (GenerationResult, RequestResult,
@@ -16,10 +18,11 @@ from repro_torch.serving.telemetry import (StreamSummary, Telemetry,
                                            percentiles, reduce_stream)
 
 __all__ = [
-    "BaseCacheManager", "CacheManager", "GenerationResult",
-    "QuasiSyncScheduler", "Request", "RequestQueue", "RequestResult",
-    "RequestState", "SLOClass", "SchedulerConfig", "ServeConfig",
-    "ServeLoop", "ServeReport", "ServingEngine", "SingleDeviceExecutor",
-    "StreamSummary", "Telemetry", "make_cache_manager", "make_executor",
-    "percentiles", "reduce_stream",
+    "BaseCacheManager", "BlockPool", "CacheManager", "GenerationResult",
+    "NoFreeBlocks", "PagedCacheManager", "QuasiSyncScheduler", "Request",
+    "RequestQueue", "RequestResult", "RequestState", "SLOClass",
+    "SchedulerConfig", "ServeConfig", "ServeLoop", "ServeReport",
+    "ServingEngine", "SingleDeviceExecutor", "StreamSummary", "TRASH_BLOCK",
+    "Telemetry", "make_cache_manager", "make_executor", "percentiles",
+    "reduce_stream",
 ]

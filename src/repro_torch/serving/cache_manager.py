@@ -1,9 +1,12 @@
 """Decode-cache managers: slot accounting base + the slab backing store
 (port of ``repro/serving/cache_manager.py``).
 
-The slab store is ONE pooled decode cache of ``n_slots`` slots, each a fixed
-worst-case ``cache_T`` region.  The paged store is not ported yet:
-``make_cache_manager(backend="paged")`` raises ``NotImplementedError``.
+  * **slab** (:class:`CacheManager`): ONE pooled decode cache of
+    ``n_slots`` slots, each a fixed worst-case ``cache_T`` region.
+  * **paged** (:class:`repro_torch.serving.block_pool.PagedCacheManager`):
+    fixed-size KV blocks allocated on demand through per-slot block tables,
+    with prefix sharing, copy-on-write and preemption when the pool runs
+    dry.
 """
 
 from __future__ import annotations
@@ -68,7 +71,9 @@ class BaseCacheManager:
     def cache_len_vector(self) -> np.ndarray:
         """(n_slots,) per-slot positions for ``decode_step`` (host array;
         the executor moves it to the device).  Free slots sit at 0: their
-        writes land in regions never read for an admitted request."""
+        writes land in regions never read for an admitted request
+        (overwritten by the next ``insert`` in the slab store, pointed at
+        the trash block in the paged store)."""
         return self.lengths.copy()
 
     def divergence(self) -> int:
@@ -120,15 +125,21 @@ class CacheManager(BaseCacheManager):
 
 
 def make_cache_manager(cfg, n_slots: int, cache_T: int, *,
-                       backend: str = "slab", executor,
+                       backend: str = "slab", block_size: int = 16,
+                       num_blocks: Optional[int] = None, executor,
                        telemetry=None) -> BaseCacheManager:
-    """Build the backing store selected by ``backend`` (slab only)."""
+    """Build the backing store selected by ``backend``, with its device ops
+    routed through ``executor`` and its spans on ``telemetry`` (None ->
+    no-op).  ``block_size`` and ``num_blocks`` size the paged pool
+    (``num_blocks`` None: the slab's footprint)."""
     if backend == "slab":
         return CacheManager(cfg, n_slots, cache_T, executor=executor,
                             telemetry=telemetry)
     if backend == "paged":
-        raise NotImplementedError("the paged KV cache backend is not "
-                                  "ported yet; use cache_backend='slab'")
+        from repro_torch.serving.block_pool import PagedCacheManager
+        return PagedCacheManager(cfg, n_slots, cache_T,
+                                 block_size=block_size, num_blocks=num_blocks,
+                                 executor=executor, telemetry=telemetry)
     raise ValueError(f"unknown cache_backend {backend!r}; "
                      f"expected 'slab' or 'paged'")
 

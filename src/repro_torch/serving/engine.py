@@ -1,22 +1,26 @@
 """Serving engine: static batched generation + quasi-sync continuous batching
-(port of ``repro/serving/engine.py``, slab slice).
+(port of ``repro/serving/engine.py``, slab and paged slices).
 
   * ``generate(batch)`` — the static path: one prefill, then the whole batch
     decodes in lock-step, ``decode_chunk`` tokens per executor call, with
     EOS early exit at chunk boundaries.
-  * ``serve(requests)`` — continuous batching over a slab slot pool: finished
+  * ``serve(requests)`` — continuous batching over a slot pool: finished
     sequences are evicted mid-flight and waiting requests are admitted into
-    freed slots under the ``QuasiSyncScheduler``'s bounded lead window.
-    Greedy outputs are token-identical to the static path.
+    freed slots under the ``QuasiSyncScheduler``'s bounded lead window.  The
+    decode cache is a slab (``cache_backend="slab"``) or block-paged
+    (``"paged"``: blocks on demand, prefix sharing, copy-on-write, and
+    preempt-and-replay when the pool runs dry).  Greedy outputs are
+    token-identical to the static path and across the two stores.
 
 The engine is host-side orchestration; device work goes through
 ``serving/executor.py``.  In a ``bp_*`` matmul mode the engine quantizes
 every dense weight to int8 + per-channel scale once, at construction.
 
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-the paged cache backend, speculative decoding, chunked prefill, the
-sparsity probe, fault injection and its recovery / degradation ladder, mesh
-serving, and telemetry sinks.  ``ServeReport.deployment`` is None until the
+speculative decoding, chunked prefill, the sparsity probe, fault injection
+and its recovery ladder, mesh serving, and telemetry sinks.  Of the
+degradation ladder only the pool-pressure rung (``pool_pressure_limit``)
+is ported.  ``ServeReport.deployment`` is None until the
 BitParticle cost models are ported.
 """
 
@@ -33,6 +37,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import quantize_dense_params
+from repro_torch.serving.block_pool import NoFreeBlocks, PagedCacheManager
 from repro_torch.serving.cache_manager import make_cache_manager
 from repro_torch.serving.executor import (SingleDeviceExecutor,
                                           make_executor, sample_seed,
@@ -52,9 +57,16 @@ class ServeConfig:
     eos_id: Optional[int] = None
     cache_margin: int = 8             # extra cache slots beyond prompt+new
     decode_chunk: int = 8             # tokens per static-path decode call
+    # decode-cache backing store: "slab" reserves a worst-case cache_T
+    # region per slot; "paged" allocates fixed-size KV blocks on demand
+    # with prefix sharing + copy-on-write
+    cache_backend: str = "slab"
+    block_size: int = 16              # tokens per KV block (paged backend)
+    # preemptions between ladder checks before the lead window is halved
+    # (sustained pool pressure; 0 disables the rung)
+    pool_pressure_limit: int = 8
     # the fields below select features that are not ported yet; anything
     # but the default raises NotImplementedError when the engine is built
-    cache_backend: str = "slab"
     mesh_shape: Optional[Tuple[int, int]] = None
     prefill_chunk: Optional[int] = None
     draft: str = "none"
@@ -66,8 +78,6 @@ class ServeConfig:
 def check_ported(serve_cfg: ServeConfig) -> None:
     """Refuse every ServeConfig feature the port does not implement yet."""
     unported = []
-    if serve_cfg.cache_backend != "slab":
-        unported.append(f"cache_backend={serve_cfg.cache_backend!r}")
     if serve_cfg.mesh_shape is not None:
         unported.append("mesh_shape")
     if serve_cfg.prefill_chunk is not None:
@@ -136,6 +146,10 @@ class ServeReport:
     max_divergence: int               # max spread of per-slot positions
     deployment: Optional[dict] = None # None until the cost models are ported
     cache_backend: str = "slab"
+    n_preemptions: int = 0            # paged: requests requeued on pool-dry
+    prefix_hit_blocks: int = 0        # paged: trie hits adopted by reference
+    cow_blocks: int = 0               # paged: copy-on-write block copies
+    peak_blocks_in_use: int = 0       # paged: max live blocks at any step
     peak_active_slots: int = 0
     mesh_shape: Optional[Tuple[int, int]] = None
     committed_tokens_per_step: float = 0.0
@@ -161,7 +175,8 @@ class ServeLoop:
 
     def __init__(self, engine: "ServingEngine", requests: Sequence[Request],
                  *, n_slots: int = 8, cache_T: Optional[int] = None,
-                 sched_cfg: Optional[SchedulerConfig] = None):
+                 sched_cfg: Optional[SchedulerConfig] = None,
+                 num_blocks: Optional[int] = None):
         self.engine = engine
         self.executor: SingleDeviceExecutor = engine.executor
         self.serve_cfg = engine.serve_cfg
@@ -182,11 +197,15 @@ class ServeLoop:
             need = [r.prompt_len + r.max_new_tokens for r in requests] or [1]
             cache_T = max(need) + self.serve_cfg.cache_margin
         self.n_slots = n_slots
-        self.cache_T = cache_T
         self.cm = make_cache_manager(engine.cfg, n_slots, cache_T,
                                      backend=self.serve_cfg.cache_backend,
+                                     block_size=self.serve_cfg.block_size,
+                                     num_blocks=num_blocks,
                                      executor=engine.executor,
                                      telemetry=self.tel)
+        self.paged = isinstance(self.cm, PagedCacheManager)
+        # prefill caches must slice into whole blocks on the paged store
+        self.cache_T = self.cm.prefill_T if self.paged else cache_T
         sched_cfg = sched_cfg if sched_cfg is not None else SchedulerConfig()
         if sched_cfg.prefill_bucketing is None:
             # attention KV families are right-padding safe: pow2 buckets
@@ -204,6 +223,8 @@ class ServeLoop:
         self.now = 0.0
         self.prefill_s = 0.0
         self.decode_s = 0.0
+        self.n_preemptions = 0
+        self._pressure_mark = 0
         self.peak_active = 0
         self._cancel_ids: Set[int] = set()
         self._any_deadlines = any(
@@ -215,12 +236,13 @@ class ServeLoop:
         self._inbox_lock = threading.Lock()
         self._closed = False
         self._decode_fn = engine.executor.decode_sample_fn(
-            self.serve_cfg.temperature)
+            self.serve_cfg.temperature, paged=self.paged)
         self._emit("run", cache_backend=str(self.serve_cfg.cache_backend),
                    n_slots=int(n_slots), cache_T=int(self.cache_T),
                    draft="none",
                    temperature=float(self.serve_cfg.temperature),
-                   mesh_shape=None)
+                   mesh_shape=None,
+                   block_size=int(self.serve_cfg.block_size))
 
     # -- telemetry plumbing --------------------------------------------------
 
@@ -242,6 +264,19 @@ class ServeLoop:
         out = (h2d - self._h2d_mark, d2h - self._d2h_mark)
         self._h2d_mark, self._d2h_mark = h2d, d2h
         return out
+
+    def _pool_gauges(self) -> dict:
+        """Block-pool gauges for one step record (zeros on the slab store).
+        Hit/CoW/peak counters are CUMULATIVE snapshots — monotone, so the
+        stream reduction recovers the totals with a running max."""
+        if not self.paged:
+            return {"blocks_in_use": 0, "prefix_hit_blocks": 0,
+                    "cow_blocks": 0, "peak_blocks_in_use": 0}
+        pool = self.cm.pool
+        return {"blocks_in_use": int(pool.n_live),
+                "prefix_hit_blocks": int(pool.n_prefix_hits),
+                "cow_blocks": int(pool.n_cow),
+                "peak_blocks_in_use": int(pool.peak_live)}
 
     # -- lifecycle: cancellation + deadlines --------------------------------
 
@@ -316,7 +351,7 @@ class ServeLoop:
         req = self._evict(slot)
         req.finish(self.now, "failed")
 
-    # -- admission ------------------------------------------------------------
+    # -- admission / preemption ---------------------------------------------
 
     def submit_arrivals(self):
         """Move arrivals whose time has come into the waiting queue;
@@ -328,6 +363,61 @@ class ServeLoop:
                 self.rq.reject(req, self.now)
                 continue
             self.rq.submit(req, self.now)
+
+    def pick_victim(self) -> Optional[int]:
+        """Preemption victim: the most recently admitted active request —
+        it has the least progress to replay (unreferenced prefix-cache
+        blocks were already reclaimed LRU-first by the pool)."""
+        cands = [(req.admitted_at or 0.0, req.request_id, slot)
+                 for slot, req in self.active.items()]
+        if not cands:
+            return None
+        return max(cands)[2]
+
+    def preempt(self, slot: int):
+        """Evict ``slot``'s request back to the queue head with its
+        generated tokens queued for token-exact replay."""
+        req = self.active.pop(slot)
+        discarded = len(req.tokens)
+        with self.tel.span("preempt", slot=slot,
+                           request_id=req.request_id):
+            self.cm.free(slot)
+            req.preempt()       # -> WAITING, tokens queued for replay
+            self.rq.push_front(req)
+        self.n_preemptions += 1
+        self._emit("preempt", step=int(self.sched.n_decode_steps),
+                   slot=int(slot), request_id=int(req.request_id),
+                   discarded_tokens=int(discarded))
+        # degradation ladder: sustained pool pressure (preemption churn)
+        # halves the lead window — smaller admission bursts trade fusion
+        # for fewer evictions
+        lim = self.serve_cfg.pool_pressure_limit
+        if (lim and self.n_preemptions - self._pressure_mark >= lim
+                and self.sched.cfg.lead_window > 0):
+            self._pressure_mark = self.n_preemptions
+            new_e = self.sched.cfg.lead_window // 2
+            self.sched.set_lead_window(new_e)
+            self._emit("degrade", step=int(self.sched.n_decode_steps),
+                       action="shrink_lead_window", lead_window=int(new_e))
+
+    def insert_with_preemption(self, slot: int, cache, req: Request,
+                               src_index: int):
+        """Install a prefill cache into ``slot``, preempting actives (newest
+        first) until the paged pool can cover the miss suffix."""
+        while True:
+            try:
+                self.cm.insert(slot, cache, req.prompt_len,
+                               src_index=src_index, tokens=req.prompt)
+                return
+            except NoFreeBlocks:
+                # the inserting request holds no slot entry in `active`
+                # yet, so it can never preempt itself here
+                victim = self.pick_victim()
+                if victim is None:
+                    raise RuntimeError(
+                        "paged pool cannot hold a single admitted "
+                        "request; increase num_blocks")
+                self.preempt(victim)
 
     def admit(self, group: List[Request], new_sync: bool = True):
         """Fused prefill of one admission group: run the prompts, sample
@@ -375,7 +465,7 @@ class ServeLoop:
                     continue
                 slot = self.cm.alloc()
                 try:
-                    self.cm.insert(slot, cache, req.prompt_len, src_index=j)
+                    self.insert_with_preemption(slot, cache, req, j)
                 except BaseException:
                     self.cm.free(slot)   # never leak the slot
                     raise
@@ -396,8 +486,7 @@ class ServeLoop:
                    new_sync=bool(new_sync),
                    active_slots=int(self.cm.n_active),
                    h2d_bytes=h2d, d2h_bytes=d2h,
-                   blocks_in_use=0, prefix_hit_blocks=0, cow_blocks=0,
-                   peak_blocks_in_use=0)
+                   **self._pool_gauges())
 
     def _append_token(self, req: Request, tok: int, wall: float):
         """Record one emitted token with its wall-clock stamp (replayed
@@ -417,9 +506,20 @@ class ServeLoop:
     # -- stepping -----------------------------------------------------------
 
     def writable_slots(self) -> List[int]:
-        """Active slots that can write this step's token (every one on the
-        slab store)."""
-        return list(self.active.keys())
+        """Active slots that can write this step's token.  On the paged
+        store every slot must own a writable block at its next position
+        (allocate at block boundaries, copy-on-write shared tails); when the
+        pool runs dry the newest admission is preempted and the check
+        retried."""
+        slots = list(self.active.keys())
+        if not self.paged:
+            return slots
+        while slots:
+            if self.cm.prepare_append(slots) is None:
+                return slots
+            self.preempt(self.pick_victim())   # newest admission goes
+            slots = list(self.active.keys())
+        return slots
 
     def decode_once(self, slots: List[int], prepare_s: float = 0.0):
         """One batched decode step over the fixed (n_slots, ...) pool: decode
@@ -431,6 +531,8 @@ class ServeLoop:
             counts[s] = len(self.active[s].tokens)
         step = {"tokens": self.last_tok[:, None],
                 "cache_len": self.cm.cache_len_vector()}
+        if self.paged:
+            step["block_tables"] = self.cm.block_tables_device()
         self.tel.count("h2d_bytes", int(self.slot_seeds.nbytes)
                        + int(counts.nbytes))
         t0 = time.perf_counter()
@@ -482,8 +584,7 @@ class ServeLoop:
                    occupancy=occupancy, divergence=divergence,
                    committed_tokens=int(n_committed),
                    h2d_bytes=h2d, d2h_bytes=d2h,
-                   blocks_in_use=0, prefix_hit_blocks=0, cow_blocks=0,
-                   peak_blocks_in_use=0)
+                   **self._pool_gauges())
 
     # -- live submission ----------------------------------------------------
 
@@ -624,6 +725,10 @@ class ServeLoop:
             max_divergence=s.max_divergence,
             deployment=None,
             cache_backend=self.serve_cfg.cache_backend,
+            n_preemptions=s.n_preemptions,
+            prefix_hit_blocks=s.prefix_hit_blocks,
+            cow_blocks=s.cow_blocks,
+            peak_blocks_in_use=s.peak_blocks_in_use,
             peak_active_slots=s.peak_active_slots,
             committed_tokens_per_step=s.committed_tokens_per_step,
             ttft_wall=percentiles([ttft_wall(r) for r in self.requests]),
@@ -745,16 +850,22 @@ class ServingEngine:
 
     def make_loop(self, requests: Sequence[Request], *, n_slots: int = 8,
                   cache_T: Optional[int] = None,
-                  sched_cfg: Optional[SchedulerConfig] = None) -> ServeLoop:
+                  sched_cfg: Optional[SchedulerConfig] = None,
+                  num_blocks: Optional[int] = None) -> ServeLoop:
         """Build (without running) the orchestration loop of one serve."""
         return ServeLoop(self, requests, n_slots=n_slots, cache_T=cache_T,
-                         sched_cfg=sched_cfg)
+                         sched_cfg=sched_cfg, num_blocks=num_blocks)
 
     def serve(self, requests: Sequence[Request], *, n_slots: int = 8,
               cache_T: Optional[int] = None,
-              sched_cfg: Optional[SchedulerConfig] = None) -> ServeReport:
+              sched_cfg: Optional[SchedulerConfig] = None,
+              num_blocks: Optional[int] = None) -> ServeReport:
         """Continuously-batched generation over a request stream;
         ``arrival_time`` is on the decode-step clock, so runs are
-        deterministic and replayable."""
+        deterministic and replayable.  On the paged store ``num_blocks``
+        caps the pool (default: the slab's footprint, plus the trash
+        block); when it runs dry the newest admission is preempted and
+        replayed token-exactly."""
         return self.make_loop(requests, n_slots=n_slots, cache_T=cache_T,
-                              sched_cfg=sched_cfg).run()
+                              sched_cfg=sched_cfg,
+                              num_blocks=num_blocks).run()

@@ -6,10 +6,11 @@ here: placing inputs on the device, running the model entry points with
 gradients off, fused decode + sampling, and cache allocation and surgery.
 
 Where the reference DONATES the pooled cache into the decode step and the
-slot insert (``donate_argnums``) so the update aliases the buffer, the port
-updates the pooled cache tensors IN PLACE and hands the same tensors back:
-the same single cache-sized allocation, with no functional copy.  A caller
-must treat a cache passed to an entry point as updated.
+cache surgery ops (slot insert, paged insert, copy-on-write block copy) so
+the update aliases the buffer, the port updates the pooled cache tensors IN
+PLACE and hands the same tensors back: the same single cache-sized
+allocation, with no functional copy.  A caller must treat a cache passed to
+an entry point as updated.
 
 The matmul backend is the config's ``matmul_backend`` (``auto``: the CUDA
 kernel on the GPU, the plain version on the CPU).  The mesh executor is not
@@ -99,20 +100,25 @@ class SingleDeviceExecutor:
         return api.prefill(self._params, self.cfg, b, cache_T,
                            prompt_lens=lens)
 
-    def decode_sample_fn(self, temperature: float):
+    def decode_sample_fn(self, temperature: float, paged: bool = False):
         """``fn(cache, step, seeds, counts) -> (tokens (n_slots,) int32 on
         the device, cache)``: decode + per-slot sampling in one call; only
         the sampled tokens need to cross to the host.  ``step`` holds host
-        arrays ``tokens`` (n_slots, 1) and ``cache_len`` (n_slots,);
+        arrays ``tokens`` (n_slots, 1) and ``cache_len`` (n_slots,) and,
+        when ``paged``, the device ``block_tables`` (put, and so counted as
+        h2d bytes, by ``PagedCacheManager.block_tables_device``);
         ``seeds``/``counts`` give each slot's sampling stream."""
         self._require_params()
+        decode = api.decode_step_paged if paged else api.decode_step
 
         @torch.no_grad()
         def fn(cache, step, seeds, counts):
             b = {"tokens": self.put(step["tokens"], torch.long),
                  "cache_len": self.put(step["cache_len"], torch.long),
                  "cache": cache}
-            logits, cache = api.decode_step(self._params, self.cfg, b)
+            if paged:
+                b["block_tables"] = step["block_tables"]
+            logits, cache = decode(self._params, self.cfg, b)
             draw = (None if temperature <= 0 else
                     [sample_seed(s, c) for s, c in zip(seeds, counts)])
             return sample_tokens(logits, temperature, draw), cache
@@ -159,6 +165,28 @@ class SingleDeviceExecutor:
         """Install request ``src_index`` of a prefill cache into ``slot`` of
         the pooled cache, in place; returns the pool."""
         return api.slot_insert(self.cfg, pool, src, slot, src_index)
+
+    def zeros_paged_cache(self, num_blocks: int, block_size: int):
+        """Allocate the block-paged decode cache on this device."""
+        return api.zeros_paged_cache(self.cfg, num_blocks, block_size,
+                                     self.device)
+
+    @torch.no_grad()
+    def paged_insert(self, pages, src, block_ids, src_index: int = 0):
+        """Scatter request ``src_index`` of a prefill cache into physical
+        pages through ``block_ids`` (trash-redirected entries skip shared
+        blocks), in place; returns the pages."""
+        ids = torch.as_tensor(np.asarray(block_ids), dtype=torch.long,
+                              device=self.device)
+        return api.paged_insert(self.cfg, pages, src, ids, src_index)
+
+    @torch.no_grad()
+    def copy_block(self, pages, dst: int, src: int):
+        """Copy physical page ``src`` -> ``dst`` in every leaf
+        (copy-on-write), in place; returns the pages."""
+        for p in pages.values():
+            p[:, dst].copy_(p[:, src])
+        return pages
 
 
 def make_executor(cfg, params=None, *, device="cuda",

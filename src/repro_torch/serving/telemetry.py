@@ -84,19 +84,23 @@ NULL_TELEMETRY = Telemetry()
 @dataclasses.dataclass
 class StreamSummary:
     """Aggregates of one serve call's step-record stream (the ported record
-    kinds: prefill, decode, reject, cancel, timeout, request)."""
+    kinds: prefill, decode, preempt, reject, cancel, timeout, request)."""
 
     prefill_s: float = 0.0            # sum of prefill dispatch walls
     decode_s: float = 0.0             # sum of decode dispatch walls
     steps: int = 0                    # decode records
     n_syncs: int = 0                  # prefill records opening a sync
-    total_new_tokens: int = 0         # emitted tokens
+    total_new_tokens: int = 0         # emitted - discarded-at-preemption
     committed_decode_tokens: int = 0  # decode commits only
     slot_utilization: float = 0.0
     committed_tokens_per_step: float = 0.0
     max_divergence: int = 0
+    n_preemptions: int = 0
     n_rejected: int = 0
     peak_active_slots: int = 0
+    prefix_hit_blocks: int = 0
+    cow_blocks: int = 0
+    peak_blocks_in_use: int = 0
     h2d_bytes: int = 0
     d2h_bytes: int = 0
     n_cancelled: int = 0
@@ -115,6 +119,7 @@ def reduce_stream(records) -> StreamSummary:
     s = StreamSummary()
     occupancy_sum = 0.0
     emitted = 0
+    discarded = 0
     for r in records:
         kind = r.get("kind")
         if kind == "prefill":
@@ -131,6 +136,10 @@ def reduce_stream(records) -> StreamSummary:
             s.max_divergence = max(s.max_divergence, int(r["divergence"]))
             s.peak_active_slots = max(s.peak_active_slots,
                                       int(r["active_slots"]))
+        elif kind == "preempt":
+            s.n_preemptions += 1
+            discarded += int(r["discarded_tokens"])
+            continue
         elif kind == "reject":
             s.n_rejected += 1
             continue
@@ -154,9 +163,15 @@ def reduce_stream(records) -> StreamSummary:
             continue
         else:
             continue
+        # pool gauges are cumulative snapshots; max == final (monotone)
+        s.prefix_hit_blocks = max(s.prefix_hit_blocks,
+                                  int(r["prefix_hit_blocks"]))
+        s.cow_blocks = max(s.cow_blocks, int(r["cow_blocks"]))
+        s.peak_blocks_in_use = max(s.peak_blocks_in_use,
+                                   int(r["peak_blocks_in_use"]))
         s.h2d_bytes += int(r["h2d_bytes"])
         s.d2h_bytes += int(r["d2h_bytes"])
-    s.total_new_tokens = emitted
+    s.total_new_tokens = emitted - discarded
     if s.steps:
         s.slot_utilization = occupancy_sum / s.steps
         s.committed_tokens_per_step = s.committed_decode_tokens / s.steps

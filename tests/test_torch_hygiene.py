@@ -7,7 +7,10 @@ refuses what it does not implement yet.
   * the entry points default to ``device="cuda"`` and raise where CUDA is
     absent, instead of running on the CPU unasked;
   * every ``ServeConfig`` feature that is not ported raises
-    ``NotImplementedError`` when the engine is built;
+    ``NotImplementedError`` when the engine is built, and what is ported
+    (the paged store) builds and serves on the CPU;
+  * the kernel wrappers refuse what their kernels do not take instead of
+    falling back;
   * ``chip_smoke.py`` exits nonzero and prints no result without a GPU or
     outside a checkout.
 """
@@ -25,6 +28,7 @@ import torch
 from repro_torch import serving
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import params_from_numpy
+from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import api
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -106,7 +110,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("cache_backend", "paged"),
     ("draft", "prompt_lookup"),
     ("draft", "model"),
     ("prefill_chunk", 16),
@@ -122,6 +125,50 @@ def test_unported_serve_features_raise(field, value):
         serving.ServingEngine(cfg, params, scfg, device="cpu")
 
 
+@pytest.mark.parametrize("int8kv", [False, True], ids=["bf16kv", "int8kv"])
+def test_paged_backend_builds_and_serves_on_cpu(int8kv):
+    cfg = _small_cfg(matmul_mode="bp_exact", kv_cache_int8=int8kv)
+    params = api.init(cfg, device="cpu")
+    engine = serving.ServingEngine(
+        cfg, params, serving.ServeConfig(cache_backend="paged", block_size=4,
+                                         max_new_tokens=3), device="cpu")
+    prompts = [torch.arange(2, 9, dtype=torch.int32).numpy()] * 2
+    rep = engine.serve([serving.Request(prompt=p, max_new_tokens=3)
+                        for p in prompts], n_slots=2)
+    assert rep.cache_backend == "paged"
+    assert [len(r.tokens) for r in rep.results] == [3, 3]
+    assert rep.prefix_hit_blocks > 0          # the shared prompt's block
+
+
+def test_make_cache_manager_rejects_unknown_backend():
+    cfg = _small_cfg()
+    with pytest.raises(ValueError, match="unknown cache_backend"):
+        serving.make_cache_manager(
+            cfg, 2, 8, backend="bogus",
+            executor=serving.SingleDeviceExecutor(cfg, device="cpu"))
+
+
+@pytest.mark.parametrize("case", ["cpu_tensors", "int8_scale_pages"])
+def test_paged_attention_kernel_backend_refuses(case):
+    q = torch.zeros(2, 4, 8)
+    pages = torch.zeros(5, 4, 2, 8)
+    tables = torch.zeros(2, 3, dtype=torch.int32)
+    lengths = torch.zeros(2, dtype=torch.int32)
+    kw = {}
+    match = "needs CUDA tensors"
+    if case == "int8_scale_pages":
+        pages = pages.to(torch.int8)
+        kw = dict(k_scale_pages=torch.ones(5, 4, 2),
+                  v_scale_pages=torch.ones(5, 4, 2))
+        match = "float pages only"
+    with pytest.raises(ValueError, match=match):
+        pa_ops.paged_attention(q, pages, pages, tables, lengths,
+                               backend="kernel", **kw)
+    with pytest.raises(ValueError, match="unknown paged-attention backend"):
+        pa_ops.paged_attention(q, pages, pages, tables, lengths,
+                               backend="xla", **kw)
+
+
 def test_unported_families_and_sinks_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
         get_arch("rwkv6-7b")
@@ -129,9 +176,6 @@ def test_unported_families_and_sinks_raise():
         api.init(_small_cfg(family="moe"), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         serving.Telemetry(metrics_path="metrics.jsonl")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serving.make_cache_manager(_small_cfg(), 2, 8, backend="paged",
-                                   executor=None)
     # the bp_* modes take weights quantized once, not float weights
     cfg = _small_cfg(matmul_mode="bp_exact")
     tokens = torch.zeros((1, 4), dtype=torch.long)
