@@ -1,6 +1,7 @@
 """Architecture configuration (port of ``repro/configs/base.py``).
 
-Only the dense causal-LM family is ported so far.  ``get_arch`` raises
+The dense causal-LM family (``qwen2-1.5b``) and the RWKV-6 family
+(``family="ssm"``, ``rwkv6-7b``) are ported.  ``get_arch`` raises
 ``NotImplementedError`` for every architecture whose family has no port
 yet, instead of handing back a config the models cannot run.
 """
@@ -24,7 +25,7 @@ ARCH_IDS = (
 )
 
 #: architectures whose config module has been ported
-PORTED_ARCHS = ("qwen2-1.5b",)
+PORTED_ARCHS = ("qwen2-1.5b", "rwkv6-7b")
 
 
 def pad_vocab(v: int) -> int:
@@ -34,7 +35,7 @@ def pad_vocab(v: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                       # dense (only family ported)
+    family: str                       # dense | ssm (the families ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -43,10 +44,12 @@ class ArchConfig:
     vocab_size: int
     head_dim: Optional[int] = None
     qkv_bias: bool = False
-    ffn_type: str = "swiglu"          # swiglu | gelu
+    ffn_type: str = "swiglu"          # swiglu | gelu | rwkv
     rope_theta: float = 1e6
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    # RWKV
+    rwkv_head_dim: int = 64
     # numerics: bf16 | bp_exact | bp_approx
     matmul_mode: str = "bf16"
     # quantized-matmul backend (see kernels/bitparticle_matmul/ops.py)
@@ -77,7 +80,7 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""
-        return self.replace(
+        kw = dict(
             num_layers=min(self.num_layers, 4),
             d_model=128,
             num_heads=4,
@@ -88,6 +91,9 @@ class ArchConfig:
             vocab_size=512,
             head_dim=32,
         )
+        if self.family == "ssm":
+            kw.update(rwkv_head_dim=32, num_heads=4)
+        return self.replace(**kw)
 
 
 def get_arch(name: str) -> ArchConfig:

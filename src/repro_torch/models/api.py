@@ -1,4 +1,4 @@
-"""Unified model API, dense slab slice (port of ``repro/models/api.py``).
+"""Unified model API: family dispatch (port of ``repro/models/api.py``).
 
     init(cfg, seed=..., device=...) -> params
     prefill(params, cfg, batch, cache_T) -> (logits, cache)
@@ -7,8 +7,11 @@
 
     decode_step_paged / verify_step_paged(params, cfg, batch) -> ...
 
-plus the slab and block-paged cache helpers the serving engine uses.
-Families other than dense raise ``NotImplementedError``.
+plus the slab and block-paged cache helpers the serving engine uses.  The
+dense family (``causal_lm``) has every entry point; the RWKV-6 family
+(``ssm``, ``rwkv_model``) has the slab ones only and raises, as the
+reference does, on ragged prefill, paged caches and verify steps.  Other
+families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,13 +21,18 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import causal_lm, layers
+from repro_torch.models import causal_lm, layers, rwkv_model
+
+_FAMILY_MODULES = {"dense": causal_lm, "ssm": rwkv_model}
+#: families whose decode cache is recurrent state, not position-indexed KV
+_RECURRENT_FAMILIES = ("ssm", "hybrid")
 
 
 def _module(cfg):
-    if cfg.family != "dense":
+    mod = _FAMILY_MODULES.get(cfg.family)
+    if mod is None:
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
-    return causal_lm
+    return mod
 
 
 def init(cfg, *, seed: int = 0, generator: Optional[torch.Generator] = None,
@@ -38,8 +46,24 @@ def init(cfg, *, seed: int = 0, generator: Optional[torch.Generator] = None,
     return _module(cfg).init(generator, cfg, device=dev)
 
 
+def is_recurrent(cfg) -> bool:
+    """Is this family's decode cache recurrent state?  Such a state
+    integrates every token it is given (right padding included) and has no
+    sequence axis to page."""
+    return cfg.family in _RECURRENT_FAMILIES
+
+
 def prefill(params, cfg, batch, cache_T: int, prompt_lens=None):
-    """``prompt_lens`` (B,) enables ragged right-padded prompt batches."""
+    """``prompt_lens`` (B,) enables ragged right-padded prompt batches for
+    families whose prefill is position-independent of right padding
+    (attention KV families); recurrent families integrate every token into
+    their state and do not support it."""
+    if prompt_lens is None:
+        return _module(cfg).prefill(params, cfg, batch, cache_T)
+    if is_recurrent(cfg):
+        raise ValueError(
+            f"family {cfg.family!r} has recurrent state: right-padded "
+            f"ragged prefill would corrupt it (use exact-length groups)")
     return _module(cfg).prefill(params, cfg, batch, cache_T,
                                 prompt_lens=prompt_lens)
 
@@ -48,20 +72,45 @@ def decode_step(params, cfg, batch):
     return _module(cfg).decode_step(params, cfg, batch)
 
 
+def supports_verify(cfg) -> bool:
+    """Can this family run the speculative multi-token verify step?
+    (Position-indexed KV that can be rewound on rejection; recurrent state
+    integrates every token irreversibly.)"""
+    return hasattr(_module(cfg), "verify_step")
+
+
+def verify_module(cfg, name: str = "verify_step"):
+    """The family's ``name`` entry point of the multi-token verify step;
+    raises ``ValueError`` for a family without one."""
+    mod = _module(cfg)
+    if not hasattr(mod, name):
+        raise ValueError(
+            f"family {cfg.family!r} has no multi-token verify path: "
+            f"speculative decoding needs position-indexed KV that can be "
+            f"rewound on rejection (recurrent state integrates every token "
+            f"irreversibly); serve with draft='none'")
+    return getattr(mod, name)
+
+
 def verify_step(params, cfg, batch):
-    return _module(cfg).verify_step(params, cfg, batch)
+    return verify_module(cfg)(params, cfg, batch)
 
 
 def decode_step_paged(params, cfg, batch):
     """Block-paged decode (``batch`` carries ``block_tables`` + per-slot
-    ``cache_len``)."""
-    return _module(cfg).decode_step_paged(params, cfg, batch)
+    ``cache_len``); position-indexed KV families only."""
+    mod = _module(cfg)
+    if not hasattr(mod, "decode_step_paged"):
+        raise ValueError(
+            f"family {cfg.family!r} has no paged decode path; "
+            f"use the slab cache backend")
+    return mod.decode_step_paged(params, cfg, batch)
 
 
 def verify_step_paged(params, cfg, batch):
     """Block-paged multi-token verify (``batch`` carries
     ``block_tables``); see :func:`verify_step`."""
-    return _module(cfg).verify_step_paged(params, cfg, batch)
+    return verify_module(cfg, "verify_step_paged")(params, cfg, batch)
 
 
 def cache_specs(cfg, B: int, cache_T: int
@@ -110,8 +159,12 @@ def paged_cache_specs(cfg, num_blocks: int, block_size: int
                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """{leaf name: (shape, dtype)} of the block-paged decode cache: every KV
     leaf is (L, num_blocks, block_size, KH, hd), plus (L, num_blocks,
-    block_size, KH) float32 scales with ``kv_cache_int8``."""
+    block_size, KH) float32 scales with ``kv_cache_int8``.  Position-
+    indexed KV families only: recurrent state has no sequence axis to
+    page."""
     _module(cfg)
+    if is_recurrent(cfg):
+        raise ValueError(f"no paged cache layout for family {cfg.family!r}")
     kv = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
           cfg.resolved_head_dim)
     if cfg.kv_cache_int8:

@@ -45,6 +45,23 @@ def rms_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def init_layernorm(d: int, lead=(), device=None):
+    return {"scale": torch.ones(*lead, d, dtype=torch.float32, device=device),
+            "bias": torch.zeros(*lead, d, dtype=torch.float32,
+                                device=device)}
+
+
+def layer_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """float32 mean and variance over the last axis, cast back to x's
+    dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] \
+        + params["bias"]
+    return out.to(x.dtype)
+
+
 # --- dense -----------------------------------------------------------------
 
 def init_dense(gen, d_in: int, d_out: int, bias: bool = False,

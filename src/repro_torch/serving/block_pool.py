@@ -38,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models import api
 from repro_torch.serving.cache_manager import BaseCacheManager
 
 TRASH_BLOCK = 0  # reserved scratch block id (never allocated, never shared)
@@ -243,10 +244,10 @@ class PagedCacheManager(BaseCacheManager):
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  executor, telemetry=None):
         from repro_torch.serving.telemetry import NULL_TELEMETRY
-        if cfg.family not in ("dense", "moe", "vlm"):
+        if api.is_recurrent(cfg):
             raise ValueError(
                 f"cache_backend='paged' supports position-indexed KV "
-                f"families (dense/moe/vlm), not {cfg.family!r}; use 'slab'")
+                f"families only, not {cfg.family!r}; use 'slab'")
         self.telemetry = telemetry if telemetry is not None else NULL_TELEMETRY
         self.block_size = block_size
         # blocks per sequence: logical capacity rounded up to whole blocks

@@ -1,5 +1,7 @@
 """Serving engine: static batched generation + quasi-sync continuous batching
-(port of ``repro/serving/engine.py``, slab and paged slices).
+(port of ``repro/serving/engine.py``, slab and paged slices), for the dense
+family (slab or paged store) and the RWKV-6 family (slab store: its
+recurrent state has no sequence axis to page).
 
   * ``generate(batch)`` — the static path: one prefill, then the whole batch
     decodes in lock-step, ``decode_chunk`` tokens per executor call, with
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import api
 from repro_torch.models.layers import quantize_dense_params
 from repro_torch.serving.block_pool import NoFreeBlocks, PagedCacheManager
 from repro_torch.serving.cache_manager import make_cache_manager
@@ -73,6 +76,22 @@ class ServeConfig:
     telemetry: Optional[Telemetry] = None
     probe: Optional[object] = None
     faults: Optional[object] = None
+
+
+def check_family(arch_cfg, serve_cfg: ServeConfig) -> None:
+    """Refuse a family that is not ported (``NotImplementedError``, from
+    ``api``), and what a ported family cannot do, as the reference does:
+    the multi-token verify step (speculative decoding, chunked prefill)
+    needs position-indexed KV that can be rewound."""
+    if api.supports_verify(arch_cfg):
+        return
+    if serve_cfg.draft != "none":
+        api.verify_module(arch_cfg)       # raises the family's refusal
+    if serve_cfg.prefill_chunk is not None:
+        raise ValueError(
+            f"family {arch_cfg.family!r} has no multi-token verify path: "
+            f"chunked prefill feeds prompt chunks through verify_step; "
+            f"serve with prefill_chunk=None")
 
 
 def check_ported(serve_cfg: ServeConfig) -> None:
@@ -208,9 +227,11 @@ class ServeLoop:
         self.cache_T = self.cm.prefill_T if self.paged else cache_T
         sched_cfg = sched_cfg if sched_cfg is not None else SchedulerConfig()
         if sched_cfg.prefill_bucketing is None:
-            # attention KV families are right-padding safe: pow2 buckets
-            sched_cfg = dataclasses.replace(sched_cfg,
-                                            prefill_bucketing="pow2")
+            # pow2 buckets need right-padding-safe prefill (attention KV);
+            # a recurrent state would integrate the padding tokens
+            sched_cfg = dataclasses.replace(
+                sched_cfg, prefill_bucketing=(
+                    "exact" if api.is_recurrent(engine.cfg) else "pow2"))
         self.rq = RequestQueue(max_waiting=sched_cfg.max_waiting,
                                on_reject=self._on_reject)
         self.sched = QuasiSyncScheduler(self.rq, self.cm, sched_cfg,
@@ -750,11 +771,9 @@ class ServingEngine:
         CUDA is absent unless ``device="cpu"``).  ``params`` must already
         lie on that device.  In a bp_* mode every dense weight is quantized
         to int8 once, here (already-int8 weights pass through)."""
-        if arch_cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {arch_cfg.family!r} is not ported")
         self.cfg = arch_cfg
         self.serve_cfg = ServeConfig() if serve_cfg is None else serve_cfg
+        check_family(arch_cfg, self.serve_cfg)
         check_ported(self.serve_cfg)
         if executor is None:
             device = resolve_device(device)

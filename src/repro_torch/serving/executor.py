@@ -10,7 +10,10 @@ cache surgery ops (slot insert, paged insert, copy-on-write block copy) so
 the update aliases the buffer, the port updates the pooled cache tensors IN
 PLACE and hands the same tensors back: the same single cache-sized
 allocation, with no functional copy.  A caller must treat a cache passed to
-an entry point as updated.
+an entry point as updated.  This holds for the RWKV-6 family too: its
+decode step writes each layer's new recurrent state into the pooled slot
+state in place (``rwkv_model.forward``) and ignores ``cache_len``, which
+the decode functions below pass for every family.
 
 The matmul backend is the config's ``matmul_backend`` (``auto``: the CUDA
 kernel on the GPU, the plain version on the CPU).  The mesh executor is not

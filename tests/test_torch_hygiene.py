@@ -52,6 +52,7 @@ for name in names:
     __import__(name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
 assert not leaked, leaked
+print(" ".join(names))
 print(len(names))
 """
 
@@ -68,6 +69,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) >= 20   # every module was walked
+    walked = set(proc.stdout.split()[:-1])
+    for name in ("repro_torch.kernels.wkv6.ops",
+                 "repro_torch.kernels.wkv6.ref",
+                 "repro_torch.kernels.wkv6.build", "repro_torch.models.rwkv6",
+                 "repro_torch.models.rwkv_model",
+                 "repro_torch.configs.rwkv6_7b"):
+        assert name in walked, name
 
 
 def _imported_roots(path: pathlib.Path):
@@ -171,7 +179,7 @@ def test_paged_attention_kernel_backend_refuses(case):
 
 def test_unported_families_and_sinks_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("rwkv6-7b")
+        get_arch("zamba2-2.7b")
     with pytest.raises(NotImplementedError, match="not ported"):
         api.init(_small_cfg(family="moe"), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
