@@ -14,10 +14,17 @@ are missing.  Phases, one JSON line each:
   kernels      each CUDA kernel held against its plain PyTorch version on
                the card at the shapes the main paths give it, plus ragged
                shapes: the BitParticle matmul bit-exact (raw int32 and the
-               fused float32 epilogue, exact and approximate modes); paged
-               attention within 1e-5 in float32 on the reference's ragged
-               shapes and within one bf16 unit in the last place at
-               qwen2-1.5b's decode shape, plus a length-0 all-trash case;
+               fused float32 epilogue, exact and approximate modes) at
+               qwen2-1.5b's projections (M 1, 4, 8, 256), rwkv6-7b's decode
+               projections and lm_head (M 1, 4, 8), the reference's ragged
+               shapes and an A one byte off alignment (the unvectorised
+               loads); paged attention within 1e-5 in float32 on the
+               reference's ragged shapes and within one bf16 unit in the
+               last place at qwen2-1.5b's decode shape, at 1, 8 and 12
+               query rows per kv head (float32 and bf16), at 32 sequences
+               of 8192 positions, at lengths either side of a ring stage and
+               a split, on pages shared across sequences, plus a length-0
+               all-trash case;
                the chunked WKV6 recurrence on the reference's kernel-test
                shapes (float32 within 2e-4, bf16 r/k/v within 3e-2), at
                rwkv6-7b's prefill shapes and one 4096-step row set (bf16),
@@ -25,7 +32,10 @@ are missing.  Phases, one JSON line each:
                each case with its maximum error;
   kernel_time  each kernel's median time (CUDA events, L2 flushed before
                each launch) beside its bound, its plain version's time and,
-               where one exists, a PyTorch library call's time;
+               where one exists, a PyTorch library call's time; the
+               BitParticle matmul at M 4, 8 and 256 on qwen2-1.5b's shapes
+               and at M 4 and 8 on rwkv6-7b's; and the time the same
+               harness gives the smallest kernel (``event_floor_ms``);
   serve        the first main path: ``ServingEngine.serve()`` on
                full-width, full-depth qwen2-1.5b (random weights from a
                seed) in bp_exact with an int8 KV cache on the slab store,
@@ -81,6 +91,13 @@ INT8_OPS_PER_S = 1979e12
 
 # (K, N) of qwen2-1.5b's dense projections: wq/wo, wk/wv, gate/up, down
 QWEN_KN = ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536))
+# (K, N) of rwkv6-7b's decode projections: r/k/v/g/o, the channel mix's
+# key and value, and the untied lm_head
+RWKV_KN = ((4096, 4096), (4096, 14336), (14336, 4096), (4096, 65536))
+# one decoder layer's seven projections, in the order the model calls them
+QWEN_LAYER_KN = ((1536, 1536), (1536, 256), (1536, 256), (1536, 1536),
+                 (1536, 8960), (1536, 8960), (8960, 1536))
+RWKV_LAYER_KN = ((4096, 4096),) * 5 + ((4096, 14336), (14336, 4096))
 # ragged shapes of the reference's kernel tests
 RAGGED_MKN = ((8, 128, 128), (16, 256, 384), (256, 256, 256), (5, 33, 17),
               (1, 128, 1), (300, 520, 260))
@@ -122,7 +139,14 @@ def check(cond: bool, msg: str) -> None:
         raise CheckFailed(msg)
 
 
+#: perf_counter() when main() started: each phase line carries the
+#: seconds since then
+_START = [time.perf_counter()]
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _START[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -177,6 +201,15 @@ def time_ms(torch, fn, flush, iters: int = 30, warmup: int = 3) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def event_floor_ms(torch, flush) -> float:
+    """``time_ms`` of the smallest kernel (one add on 16 floats): what the
+    events, the launch and a cold start add to every timed call, whatever
+    the kernel does.  Printed beside the times so that a short kernel's
+    time can be read against it."""
+    x = torch.zeros(16, device="cuda")
+    return time_ms(torch, lambda: x.add_(1), flush)
 
 
 def matmul_bound(m: int, k: int, n: int, approx: bool):
@@ -343,10 +376,17 @@ def check_bp_matmul(torch):
     from repro_torch.kernels.bitparticle_matmul.ops import bp_matmul
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = [(m, k, n) for m in (1, 4, 8, 256) for k, n in QWEN_KN]
+    shapes += [(m, k, n) for m in (1, 4, 8) for k, n in RWKV_KN]
     shapes += list(RAGGED_MKN)
+    # K a multiple of 16 but A one byte off 16-byte alignment: the
+    # kernel's unvectorised loads
+    shapes += [(4, 8960, 256, "misaligned")]
     n_cases, max_err, failures = 0, 0.0, []
-    for m, k, n in shapes:
+    for m, k, n, *misaligned in shapes:
         a, w, sa, sw = _rand_case(torch, gen, m, k, n)
+        if misaligned:
+            buf = torch.empty(m * k + 1, dtype=torch.int8, device="cuda")
+            a = buf[1:].view(m, k).copy_(a)
         for name, approx in MODES:
             got_i = bp_matmul(a, w, approx=approx, backend="kernel")
             want_i = bp_matmul(a, w, approx=approx, backend="plain")
@@ -360,6 +400,7 @@ def check_bp_matmul(torch):
             if not (torch.equal(got_i, want_i) and torch.equal(got_f,
                                                               want_f)):
                 failures.append({"m": m, "k": k, "n": n, "mode": name,
+                                 "misaligned": bool(misaligned),
                                  "int_err": err_i, "f32_err": err_f})
     return {"name": "bp_matmul", "cases": n_cases,
             "tolerance": "bit-exact (int32 and float32)",
@@ -373,6 +414,7 @@ def check_paged_attention(torch):
     reference's ragged shapes (atol = rtol = 1e-5, that test's own), bf16 at
     qwen2-1.5b's decode shape (one bf16 unit in the last place, see
     ``bf16_ulp``), and length-0 slots whose tables are all trash."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention.ops import paged_attention
     gen = torch.Generator(device="cuda").manual_seed(3)
     H, KH, D, bs = (QWEN_ATTN[k] for k in ("H", "KH", "D", "bs"))
@@ -390,10 +432,42 @@ def check_paged_attention(torch):
         cases.append((f"qwen2 decode B{B}", "bfloat16",
                       paged_case(torch, gen, B, H, KH, D, B * pps + 1, bs,
                                  pps, lengths, torch.bfloat16)))
+    # 1, 8 and 12 query rows per kv head (12: two groups of 6), both dtypes
+    for G in (1, 8, 12):
+        for dtype, name in ((torch.float32, "float32"),
+                            (torch.bfloat16, "bfloat16")):
+            lengths = torch.randint(0, bs * pps, (4,), generator=gen,
+                                    device="cuda").tolist()
+            cases.append((f"G{G} B4 {name}", name,
+                          paged_case(torch, gen, 4, 2 * G, 2, D,
+                                     4 * pps + 1, bs, pps, lengths, dtype)))
+    # 32 sequences of 8192 positions (lengths 8191), and lengths either
+    # side of a ring stage and of a split of a 512-page table
+    long_pps = 512
+    cases.append(("qwen2 decode B32 L8192", "bfloat16",
+                  paged_case(torch, gen, 32, H, KH, D, 32 * long_pps + 1, bs,
+                             long_pps, [8191] * 32, torch.bfloat16)))
+    stage = pa_ops.STAGE_ROWS
+    _, rps = pa_ops.split_plan(
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        8 * KH, long_pps * bs, bs)
+    edges = [stage - 1, stage, stage + 1, 2 * stage, rps - 1, rps, rps + 1,
+             rps + stage]
+    cases.append(("stage and split edges", "bfloat16",
+                  paged_case(torch, gen, len(edges), H, KH, D,
+                             len(edges) * long_pps + 1, bs, long_pps, edges,
+                             torch.bfloat16)))
+    # every sequence on the same pages (a shared prompt), at other lengths
+    q, kp, vp, tables, _ = paged_case(torch, gen, 6, H, KH, D, 40, bs, pps,
+                                      [bs * pps - 1] * 6, torch.bfloat16)
+    tables[:] = tables[0].clone()
+    lens = torch.tensor([0, 5, 100, 256, 300, bs * pps - 1],
+                        dtype=torch.int32, device="cuda")
+    cases.append(("shared pages", "bfloat16", (q, kp, vp, tables, lens)))
     for dtype, name in ((torch.float32, "float32"),
                         (torch.bfloat16, "bfloat16")):
-        # a 16-page table: the kernel splits it over two blocks, and the
-        # second has no valid position
+        # a 16-page table: the kernel splits it over several blocks, and
+        # all but the first have no valid position
         q, kp, vp, tables, lens = paged_case(torch, gen, 4, H, KH, D, 9, bs,
                                              16, [0] * 4, dtype)
         cases.append((f"length 0, all-trash tables, {name}", name,
@@ -539,15 +613,23 @@ def time_case(torch, flush, gen, m, k, n, approx):
 def phase_kernel_time(torch, gpu, flush):
     from repro_torch.kernels.bitparticle_matmul import ops
     gen = torch.Generator(device="cuda").manual_seed(1)
+    floor = event_floor_ms(torch, flush)
     rows = []
-    for m in (8, 256):
+    for m in (4, 8, 256):
         for k, n in QWEN_KN:
+            for _, approx in MODES:
+                rows.append(time_case(torch, flush, gen, m, k, n, approx))
+    for m in (4, 8):
+        for k, n in RWKV_KN:
             for _, approx in MODES:
                 rows.append(time_case(torch, flush, gen, m, k, n, approx))
     ops.reset_launches()
     emit({"phase": "kernel_time", "gpu": gpu, "kernel": "bp_matmul",
+          "shape": "qwen2-1.5b's projections at M 4, 8 (decode) and 256 "
+                   "(prefill); rwkv6-7b's decode projections and lm_head "
+                   "at M 4 and 8",
           "library": "torch._int_mm (exact mode, M > 16 only)",
-          "rows": rows})
+          "event_floor_ms": floor, "rows": rows})
     pa_rows = [time_paged_case(torch, flush, gen, B, [L - 1] * B)
                for B in (4, 32) for L in (128, 512, 2048, 8192)]
     emit({"phase": "kernel_time", "gpu": gpu, "kernel": "paged_attention",
@@ -555,7 +637,7 @@ def phase_kernel_time(torch, gpu, flush):
                    "bf16; every sequence at the same length",
           "library": "torch.nn.functional.scaled_dot_product_attention "
                      "(enable_gqa) on K/V gathered dense beforehand",
-          "rows": pa_rows})
+          "event_floor_ms": floor, "rows": pa_rows})
     wkv_rows = [time_wkv_case(torch, flush, gen, R, T)
                 for R, T in WKV_SERVE_SHAPES + (WKV_LONG_SHAPE,)]
     emit({"phase": "kernel_time", "gpu": gpu, "kernel": "wkv6",
@@ -1240,8 +1322,7 @@ def wkv6_summary(torch, flush, shape, launches):
 
 #: device-kernel name fragments of each of the port's CUDA kernels
 KERNEL_SYMBOLS = {"bp_matmul": ("bp_gemv", "bp_tile"),
-                  "paged_attention": ("paged_attention_kernel",
-                                      "merge_kernel"),
+                  "paged_attention": ("paged_attention_kernel",),
                   "wkv6": ("wkv6_chunked_kernel",)}
 
 
@@ -1318,15 +1399,14 @@ def _leaves(tree):
         yield tree
 
 
-def decode_layer_summary(torch, flush, n_slots, launches):
-    """The kernels line's numbers for bp_matmul: the seven projections of
-    one decoder layer at the main path's decode shape (M = n_slots), timed
-    back to back in this run, beside the plain version and the bound."""
+def time_chain(torch, flush, gen, m, kn):
+    """Calls of the BitParticle matmul (exact, fused dequant) at M = m, one
+    per (K, N) of ``kn``, timed back to back in this run beside the plain
+    version and the bound: (ms, plain_ms, bound_ms, bound_by, max_abs_err).
+    The calls are one dependent chain on the main path, so their bound is
+    the sum of theirs."""
     from repro_torch.kernels.bitparticle_matmul.ops import bp_matmul
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    kn = [(1536, 1536), (1536, 256), (1536, 256), (1536, 1536),
-          (1536, 8960), (1536, 8960), (8960, 1536)]
-    cases = [_rand_case(torch, gen, n_slots, k, n) for k, n in kn]
+    cases = [_rand_case(torch, gen, m, k, n) for k, n in kn]
     err = 0.0
     for a, w, sa, sw in cases:
         d = bp_matmul(a, w, sa, sw, backend="kernel") - bp_matmul(
@@ -1339,20 +1419,40 @@ def decode_layer_summary(torch, flush, n_slots, launches):
 
     ms = time_ms(torch, run("kernel"), flush)
     plain_ms = time_ms(torch, run("plain"), flush, iters=10)
-    bounds = [matmul_bound(n_slots, k, n, False)[0] for k, n in kn]
-    # the seven calls are one dependent chain on the main path, so their
-    # bound is the sum; all are byte-bound at this M
-    bound_by = {matmul_bound(n_slots, k, n, False)[1] for k, n in kn}
+    bounds = [matmul_bound(m, k, n, False) for k, n in kn]
+    bound_by = {by for _, by in bounds}
+    return (ms, plain_ms, sum(t for t, _ in bounds),
+            "bytes" if bound_by == {"bytes"} else "operations", err)
+
+
+def decode_layer_summary(torch, flush, n_slots, launches):
+    """The kernels line's numbers for bp_matmul: the seven projections of
+    one qwen2-1.5b decoder layer at the main path's decode shape (M =
+    n_slots), and beside them one rwkv6-7b layer's seven projections and
+    its lm_head at the same M, each timed in this run beside the plain
+    version and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ms, plain_ms, bound_ms, bound_by, err = time_chain(
+        torch, flush, gen, n_slots, QWEN_LAYER_KN)
+    extra = {}
+    for name, kn in (("rwkv6_7b_layer", RWKV_LAYER_KN),
+                     ("rwkv6_7b_lm_head", ((4096, 65536),))):
+        r_ms, r_plain, r_bound, r_by, r_err = time_chain(
+            torch, flush, gen, n_slots, kn)
+        err = max(err, r_err)
+        extra[name] = {"ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
+                       "bound_by": r_by, "max_abs_err": r_err}
     return {"name": "bp_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/bitparticle_matmul/csrc/"
                       "bp_matmul.cu",
             "replaces": "src/repro/kernels/bitparticle_matmul/kernel.py:93",
             "launches": launches["bp_matmul"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": sum(bounds),
-            "bound_by": "bytes" if bound_by == {"bytes"} else "operations",
-            "library_ms": None,
-            "shape": f"one decoder layer's 7 projections at M={n_slots} "
-                     f"(decode), exact mode; torch._int_mm refuses M <= 16"}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": f"one qwen2-1.5b decoder layer's 7 projections at "
+                     f"M={n_slots} (decode), exact mode; torch._int_mm "
+                     f"refuses M <= 16",
+            **extra}
 
 
 def paged_layer_summary(torch, flush, paged_shape, launches):
@@ -1401,7 +1501,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     gpu = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     records = []
-    t0 = time.perf_counter()
+    t0 = _START[0] = time.perf_counter()
     try:
         phase_device(torch, gpu)
         phase_kernels(torch, gpu)

@@ -13,6 +13,12 @@ launch in :data:`LAUNCHES`.  Backends:
 
 There is no fallback: a failed build or launch raises.
 
+Decode calls (at most :data:`GEMV_MAX_M` rows) take the kernel's split-K
+GEMV, whose K slices :func:`gemv_plan` chooses from the shapes alone.  Split
+sums meet in an int32 workspace that the kernel leaves zeroed
+(:func:`_workspace`, one per device, grown on demand); calls on one device
+must therefore run on one stream at a time, as the serving path does.
+
 Unlike the TPU wrapper there is no host-side padding (the kernel masks
 ragged edges itself) and the weight must be K-major: ``w_q`` is the logical
 (K, N) weight whose storage is (N, K) row-major, i.e. ``w_q.stride() ==
@@ -23,6 +29,7 @@ it when it quantizes the weights.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -34,6 +41,21 @@ BACKENDS = ("auto", "plain", "kernel")
 #: kernel launches since the last :func:`reset_launches` (plain-version
 #: calls are not counted)
 LAUNCHES = {"bp_matmul": 0}
+
+#: rows up to which the kernel takes its decode GEMV (``bp_gemv_kernel``)
+GEMV_MAX_M = 8
+#: warps of one GEMV block, and output columns of one warp
+GEMV_WARPS = 8
+GEMV_WARP_COLS = 4
+#: shared memory a GEMV block may give its slice of A (and its particles)
+GEMV_SMEM_A = 108 * 1024
+#: GEMV blocks resident on each SM at once (the kernel's launch bounds)
+GEMV_BLOCKS_PER_SM = 2
+#: share of the resident warps that must get a part of a column group's K
+#: range before the plan stops giving a column group more warps
+GEMV_MIN_FILL = 0.7
+
+_WORKSPACE: dict = {}
 
 
 def reset_launches() -> None:
@@ -49,6 +71,57 @@ def kmajor(w: torch.Tensor) -> torch.Tensor:
 def is_kmajor(w: torch.Tensor) -> bool:
     k, n = w.shape[-2:]
     return w.stride(-2) == 1 and (w.stride(-1) == k or n == 1)
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(sms: int, m: int, n: int, k: int, approx: bool
+              ) -> tuple[int, int, int, int]:
+    """(wk, split, kslice, n_blocks) of the decode GEMV.  K is cut into
+    ``split`` slices of ``kslice`` bytes, a multiple of 16 (so every slice
+    of a ``vec`` call starts 16-byte aligned), covering K exactly: split *
+    kslice >= k > (split - 1) * kslice; K is split across blocks only where
+    the staged slice of A (three copies in approx mode) would outgrow
+    :data:`GEMV_SMEM_A`.  A block's 8 warps are 8 / wk groups of 4 columns,
+    and the wk warps of a group share its K range: the fewest (1, 2, 4 or
+    8) that give :data:`GEMV_MIN_FILL` of the resident warps a part.  The
+    ``n_blocks`` blocks of each slice, at most the resident ones, walk the
+    column tiles."""
+    if not 1 <= m <= GEMV_MAX_M or n < 1 or k < 1:
+        raise ValueError(f"no GEMV plan for M={m}, N={n}, K={k}")
+    mp = 4 if m <= 4 else 8     # the kernel's row counts
+    cap = GEMV_SMEM_A // (mp * (3 if approx else 1)) // 16 * 16
+    kslice = -(-k // -(-k // cap))
+    kslice = -(-kslice // 16) * 16
+    split = -(-k // kslice)
+    resident = max(1, GEMV_BLOCKS_PER_SM * sms // split)
+    groups = -(-n // GEMV_WARP_COLS)
+    wk = GEMV_WARPS
+    for cand in (1, 2, 4):
+        if groups * cand >= GEMV_MIN_FILL * GEMV_WARPS * resident:
+            wk = cand
+            break
+    tiles = -(-n // (GEMV_WARP_COLS * (GEMV_WARPS // wk)))
+    return wk, split, kslice, min(tiles, resident)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _workspace(dev: torch.device, m: int, n: int):
+    """Zeroed int32 scratch for split sums (m * n) and per-tile arrival
+    counters (at most one per 4 columns), kept per device; the kernel
+    leaves both zero again."""
+    tiles = -(-n // GEMV_WARP_COLS)
+    ws, cnt = _WORKSPACE.get(dev, (None, None))
+    if ws is None or ws.numel() < m * n or cnt.numel() < tiles:
+        ws = torch.zeros(max(m * n, 0 if ws is None else ws.numel()),
+                         dtype=torch.int32, device=dev)
+        cnt = torch.zeros(max(tiles, 0 if cnt is None else cnt.numel()),
+                          dtype=torch.int32, device=dev)
+        _WORKSPACE[dev] = (ws, cnt)
+    return ws, cnt
 
 
 def _use_kernel(a_q: torch.Tensor, backend: str) -> bool:
@@ -120,6 +193,13 @@ def bp_matmul(a_q: torch.Tensor, w_q: torch.Tensor,
         return out.reshape(*lead, n)
     vec = (k % 16 == 0 and a2.data_ptr() % 16 == 0
            and w_q.data_ptr() % 16 == 0)
+    wk, split, kslice, n_blocks, ws_ptr, cnt_ptr = 1, 1, 16, 1, 0, 0
+    if m <= GEMV_MAX_M:
+        wk, split, kslice, n_blocks = gemv_plan(_sm_count(dev), m, n, k,
+                                                bool(approx))
+        if split > 1:
+            ws, cnt = _workspace(dev, m, n)
+            ws_ptr, cnt_ptr = ws.data_ptr(), cnt.data_ptr()
     from repro_torch.kernels.bitparticle_matmul.build import library
     lib = library()
     with torch.cuda.device(dev):
@@ -129,7 +209,8 @@ def bp_matmul(a_q: torch.Tensor, w_q: torch.Tensor,
             ctypes.c_void_p(sa.data_ptr() if fuse else 0),
             ctypes.c_void_p(sw.data_ptr() if fuse else 0),
             ctypes.c_void_p(out.data_ptr()), m, n, k, int(approx), int(fuse),
-            int(vec), ctypes.c_void_p(stream))
+            int(vec), split, kslice, wk, n_blocks, ctypes.c_void_p(ws_ptr),
+            ctypes.c_void_p(cnt_ptr), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"bp_matmul kernel launch failed: CUDA error {rc}")
     LAUNCHES["bp_matmul"] += 1

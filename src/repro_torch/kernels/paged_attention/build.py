@@ -14,8 +14,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.paged_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
 
 

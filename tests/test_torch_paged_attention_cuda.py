@@ -128,3 +128,85 @@ def test_int8_scale_pages_route_to_plain_and_are_counted(cuda_device):
     with pytest.raises(ValueError, match="float pages only"):
         ops.paged_attention(q, kq, vq, bt, lens, k_scale_pages=ks,
                             v_scale_pages=vs, backend="kernel")
+
+
+def _qwen_case(seed, B, G, lengths, dtype, device, pps, shared=False):
+    """qwen2-1.5b's head dim and block size (D 128, bs 16) with G query
+    rows per kv head on 2 kv heads; each sequence on its own pages, or all
+    on the same pages (a shared prompt)."""
+    rng = np.random.default_rng(seed)
+    H, KH, D, bs = 2 * G, 2, 128, 16
+    n_blocks = (1 if shared else B) * pps + 1
+    q, kp, vp = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(device=device, dtype=dtype)
+                 for s in ((B, H, D), (n_blocks, bs, KH, D),
+                           (n_blocks, bs, KH, D)))
+    ids = rng.permutation(np.arange(1, n_blocks)).astype(np.int32)
+    tables = (np.tile(ids[:pps], (B, 1)) if shared
+              else ids[:B * pps].reshape(B, pps))
+    return (q, kp, vp, torch.from_numpy(np.ascontiguousarray(tables)).to(
+        device), torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+def _check(args, dtype):
+    got = ops.paged_attention(*args, backend="kernel")
+    want = ops.paged_attention(*args, backend="plain")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= _bf16_ulp(want)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 6, 8, 12])
+def test_query_rows_per_kv_head(cuda_device, G, dtype):
+    # G > 8 is taken in two groups of G / 2 query rows
+    pps = 24
+    lengths = [383, 0, 200, 64]
+    _check(_qwen_case(G, 4, G, lengths, dtype, cuda_device, pps), dtype)
+
+
+@pytest.mark.cuda
+def test_thirty_two_sequences_of_8192(cuda_device):
+    args = _qwen_case(7, 32, 6, [8191] * 32, torch.bfloat16, cuda_device,
+                      512)
+    _check(args, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_lengths_either_side_of_a_stage_and_a_split(cuda_device, dtype):
+    # a 512-page table: its split and the ring's stages both end inside
+    # it; lengths just before, at and after those ends
+    pps = 512
+    n_split, rps = ops.split_plan(
+        torch.cuda.get_device_properties(cuda_device).multi_processor_count,
+        8 * 2, pps * 16, 16)
+    stage = ops.STAGE_ROWS
+    edges = [stage - 2, stage - 1, stage, stage + 1, rps - 2, rps - 1, rps,
+             rps + 1]
+    _check(_qwen_case(11, len(edges), 6, edges, dtype, cuda_device, pps),
+           dtype)
+
+
+@pytest.mark.cuda
+def test_pages_shared_across_sequences(cuda_device):
+    # one page run in every table, as the paged serve's shared prompt
+    args = _qwen_case(13, 6, 6, [0, 5, 100, 256, 300, 383], torch.bfloat16,
+                      cuda_device, 24, shared=True)
+    _check(args, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_split_counters_are_left_zero(cuda_device):
+    args = _qwen_case(17, 4, 6, [8191] * 4, torch.bfloat16, cuda_device, 512)
+    for _ in range(2):
+        _check(args, torch.bfloat16)
+    cnt = ops._COUNTERS[args[0].device]
+    assert int(cnt.abs().sum()) == 0
