@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--details PATH]
+    python3 chip_smoke.py --tile-sweep PATH
 
 Runs from the root of a checkout and needs one CUDA device; it exits
 nonzero, printing no result, when CUDA is unavailable or the port's sources
@@ -14,11 +15,14 @@ are missing.  Phases, one JSON line each:
   kernels      each CUDA kernel held against its plain PyTorch version on
                the card at the shapes the main paths give it, plus ragged
                shapes: the BitParticle matmul bit-exact (raw int32 and the
-               fused float32 epilogue, exact and approximate modes) at
-               qwen2-1.5b's projections (M 1, 4, 8, 256), rwkv6-7b's decode
-               projections and lm_head (M 1, 4, 8), the reference's ragged
-               shapes and an A one byte off alignment (the unvectorised
-               loads); paged attention within 1e-5 in float32 on the
+               fused float32 epilogue, exact and approximate modes) on its
+               decode GEMV at qwen2-1.5b's and rwkv6-7b's projections and
+               lm_head (M 1, 4, 8) and on its prefill tile kernel at both
+               models' projections (M 9 to 2048), the reference's ragged
+               shapes and ragged prefill ones (K % 16 != 0, N 17 and 260),
+               an A one byte off alignment (the byte loads), inputs with
+               -128, and plans that split K (the GEMV's workspace must be
+               zero again after them); paged attention within 1e-5 in float32 on the
                reference's ragged shapes and within one bf16 unit in the
                last place at qwen2-1.5b's decode shape, at 1, 8 and 12
                query rows per kv head (float32 and bf16), at 32 sequences
@@ -33,9 +37,11 @@ are missing.  Phases, one JSON line each:
   kernel_time  each kernel's median time (CUDA events, L2 flushed before
                each launch) beside its bound, its plain version's time and,
                where one exists, a PyTorch library call's time; the
-               BitParticle matmul at M 4, 8 and 256 on qwen2-1.5b's shapes
-               and at M 4 and 8 on rwkv6-7b's; and the time the same
-               harness gives the smallest kernel (``event_floor_ms``);
+               BitParticle matmul's GEMV at M 4 and 8 on both models'
+               decode shapes, its tile kernel at the serves' prefill rows
+               (qwen2-1.5b M 64-2048, rwkv6-7b M 64, 100, 256) beside
+               ``torch._int_mm`` in both weight layouts; and the time the
+               same harness gives the smallest kernel (``event_floor_ms``);
   serve        the first main path: ``ServingEngine.serve()`` on
                full-width, full-depth qwen2-1.5b (random weights from a
                seed) in bp_exact with an int8 KV cache on the slab store,
@@ -72,6 +78,12 @@ are missing.  Phases, one JSON line each:
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits 1.
+
+``--tile-sweep PATH`` runs none of that: it times every tile x K split of
+the BitParticle matmul's prefill tile kernels at the serves' prefill
+shapes, each held bit-exact against the plain version, beside the host
+plan's own choice (``ops.tile_plan``, whose thresholds were fitted to this
+sweep), and writes them to PATH.
 """
 
 from __future__ import annotations
@@ -94,13 +106,24 @@ QWEN_KN = ((1536, 1536), (1536, 256), (1536, 8960), (8960, 1536))
 # (K, N) of rwkv6-7b's decode projections: r/k/v/g/o, the channel mix's
 # key and value, and the untied lm_head
 RWKV_KN = ((4096, 4096), (4096, 14336), (14336, 4096), (4096, 65536))
+# (M, [(K, N)]) of the prefill timing rows: the serves' prefill row counts
+# (qwen2: group x pow2 bucket, up to 2048 in the paged serve; rwkv6-7b:
+# exact prompt lengths, one request per group) on the projections prefill
+# takes through the tile kernel
+PREFILL_TIME = tuple((m, QWEN_KN) for m in (64, 256, 512, 2048)) + tuple(
+    (m, RWKV_KN[:3]) for m in (64, 100, 256))
 # one decoder layer's seven projections, in the order the model calls them
 QWEN_LAYER_KN = ((1536, 1536), (1536, 256), (1536, 256), (1536, 1536),
                  (1536, 8960), (1536, 8960), (8960, 1536))
 RWKV_LAYER_KN = ((4096, 4096),) * 5 + ((4096, 14336), (14336, 4096))
-# ragged shapes of the reference's kernel tests
+# ragged shapes of the reference's kernel tests, and ragged prefill shapes:
+# K not a multiple of 16 (byte loads), N 17 and 260
 RAGGED_MKN = ((8, 128, 128), (16, 256, 384), (256, 256, 256), (5, 33, 17),
-              (1, 128, 1), (300, 520, 260))
+              (1, 128, 1), (300, 520, 260), (17, 520, 17), (9, 4096, 260),
+              (2048, 520, 17), (100, 1000, 260), (512, 1000, 8960))
+# prefill row counts held against the plain version on both models'
+# projections: a 9-row group up to a 2048-row paged prefill
+PREFILL_CHECK_M = (9, 16, 17, 64, 100, 256, 512, 2048)
 MODES = (("exact", False), ("approx", True))
 BF16_OPS_PER_S = 989e12
 # float32 outside the tensor cores
@@ -350,11 +373,11 @@ def phase_device(torch, gpu):
           "all_builds_s": time.perf_counter() - t0})
 
 
-def _rand_case(torch, gen, m, k, n):
+def _rand_case(torch, gen, m, k, n, low=-127):
     from repro_torch.kernels.bitparticle_matmul.ops import kmajor
-    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+    a = torch.randint(low, 128, (m, k), generator=gen, device="cuda",
                       dtype=torch.int32).to(torch.int8)
-    w = kmajor(torch.randint(-127, 128, (k, n), generator=gen,
+    w = kmajor(torch.randint(low, 128, (k, n), generator=gen,
                              device="cuda",
                              dtype=torch.int32).to(torch.int8))
     sa = torch.rand(m, generator=gen, device="cuda") * 0.1 + 1e-3
@@ -373,38 +396,75 @@ def phase_kernels(torch, gpu):
 
 
 def check_bp_matmul(torch):
-    from repro_torch.kernels.bitparticle_matmul.ops import bp_matmul
+    """The BitParticle matmul bit-exact against its plain version (raw
+    int32 and fused float32, both modes), on each route: the decode GEMV
+    (M <= 8) and the prefill tile kernels (M > 8: ``mma.sync``, and
+    ``wgmma`` for exact mode's larger tiles), each route's cases and error
+    kept apart; plans that split K are counted (the tiles' slices sum in a
+    cluster's shared memory, the GEMV's in a workspace, which must be zero
+    again after them)."""
+    from repro_torch.kernels.bitparticle_matmul import ops
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = [(m, k, n) for m in (1, 4, 8, 256) for k, n in QWEN_KN]
-    shapes += [(m, k, n) for m in (1, 4, 8) for k, n in RWKV_KN]
+    shapes = [(m, k, n) for m in (1, 4, 8) for k, n in QWEN_KN + RWKV_KN]
+    shapes += [(m, k, n) for m in PREFILL_CHECK_M
+               for k, n in QWEN_KN + RWKV_KN[:3]]
     shapes += list(RAGGED_MKN)
-    # K a multiple of 16 but A one byte off 16-byte alignment: the
-    # kernel's unvectorised loads
-    shapes += [(4, 8960, 256, "misaligned")]
-    n_cases, max_err, failures = 0, 0.0, []
-    for m, k, n, *misaligned in shapes:
-        a, w, sa, sw = _rand_case(torch, gen, m, k, n)
-        if misaligned:
+    # A one byte off 16-byte alignment (K a multiple of 16): the kernels'
+    # byte loads
+    shapes += [(4, 8960, 256, "misaligned"), (100, 4096, 4096, "misaligned"),
+               (256, 4096, 4096, "misaligned")]
+    # every int8 value, -128 included (no particles: rem4 = rem16 = 0)
+    shapes += [(8, 4096, 512, "minus128"), (256, 1536, 264, "minus128")]
+    routes = ("gemv", "mma", "wgmma")
+    cases, max_err = dict.fromkeys(routes, 0), dict.fromkeys(routes, 0.0)
+    failures, split_plans = [], 0
+    for m, k, n, *variant in shapes:
+        a, w, sa, sw = _rand_case(torch, gen, m, k, n,
+                                  low=-128 if variant == ["minus128"]
+                                  else -127)
+        if variant == ["misaligned"]:
             buf = torch.empty(m * k + 1, dtype=torch.int8, device="cuda")
             a = buf[1:].view(m, k).copy_(a)
+        sms = ops._sm_count(a.device)
         for name, approx in MODES:
-            got_i = bp_matmul(a, w, approx=approx, backend="kernel")
-            want_i = bp_matmul(a, w, approx=approx, backend="plain")
-            got_f = bp_matmul(a, w, sa, sw, approx=approx, backend="kernel")
-            want_f = bp_matmul(a, w, sa, sw, approx=approx, backend="plain")
+            if m <= ops.GEMV_MAX_M:
+                route, plan = "gemv", ops.gemv_plan(sms, m, n, k, approx)
+                split_plans += plan[1] > 1
+            else:
+                plan = ops.tile_plan(sms, m, n, k, approx)
+                route = ("wgmma" if ops.tile_uses_wgmma(plan[0], plan[1],
+                                                        approx) else "mma")
+                split_plans += plan[2] > 1
+            got_i = ops.bp_matmul(a, w, approx=approx, backend="kernel")
+            want_i = ops.bp_matmul(a, w, approx=approx, backend="plain")
+            got_f = ops.bp_matmul(a, w, sa, sw, approx=approx,
+                                  backend="kernel")
+            want_f = ops.bp_matmul(a, w, sa, sw, approx=approx,
+                                   backend="plain")
             torch.cuda.synchronize()
             err_i = (got_i.long() - want_i.long()).abs().max().item()
             err_f = (got_f - want_f).abs().max().item()
-            max_err = max(max_err, float(err_i), err_f)
-            n_cases += 2
+            max_err[route] = max(max_err[route], float(err_i), err_f)
+            cases[route] += 2
             if not (torch.equal(got_i, want_i) and torch.equal(got_f,
                                                               want_f)):
                 failures.append({"m": m, "k": k, "n": n, "mode": name,
-                                 "misaligned": bool(misaligned),
-                                 "int_err": err_i, "f32_err": err_f})
-    return {"name": "bp_matmul", "cases": n_cases,
+                                 "route": route, "variant": variant,
+                                 "plan": plan, "int_err": err_i,
+                                 "f32_err": err_f})
+    torch.cuda.synchronize()
+    ws, cnt = ops._WORKSPACE[torch.device("cuda", 0)]
+    ws_left = int(ws.abs().sum()) + int(cnt.abs().sum())
+    if split_plans == 0 or ws_left:
+        failures.append({"split_plans": split_plans,
+                         "workspace_left_nonzero": ws_left})
+    ops.reset_launches()
+    return {"name": "bp_matmul", "cases": sum(cases.values()),
+            "cases_by_route": cases,
             "tolerance": "bit-exact (int32 and float32)",
-            "max_abs_err": max_err,
+            "max_abs_err": max(max_err.values()),
+            "max_abs_err_by_route": max_err,
+            "split_plans": split_plans, "workspace_left_nonzero": ws_left,
             "parity": "ok" if not failures else "FAILED",
             "failures": failures[:10]}
 
@@ -585,27 +645,52 @@ def time_wkv_case(torch, flush, gen, R, T, N=64, chunk=64):
 
 
 def _library_int_mm(torch, a, w):
-    """torch._int_mm (cuBLAS int8 GEMM) on the same operands, or None
-    where its shape rules refuse them (it needs M > 16 and K, N multiples
-    of 8).  Timed only; the port never calls it."""
+    """torch._int_mm (cuBLAS int8 GEMM) on the same operands, one call per
+    weight layout: ``row_major`` the (K, N) weight made contiguous, and
+    ``k_major`` the weight as the port stores it (column-major (K, N), the
+    "TN" form cuBLASLt's int8 GEMM is built for).  Empty where its shape
+    rules refuse them (M > 16, K and N multiples of 8).  Timed only; the
+    port never calls it."""
     m, k = a.shape
     n = w.shape[1]
     if m <= 16 or k % 8 or n % 8:
-        return None
+        return {}
     wc = w.contiguous()
-    return lambda: torch._int_mm(a, wc)
+    return {"row_major": lambda: torch._int_mm(a, wc),
+            "k_major": lambda: torch._int_mm(a, w)}
 
 
-def time_case(torch, flush, gen, m, k, n, approx):
-    from repro_torch.kernels.bitparticle_matmul.ops import bp_matmul
+def library_times(torch, flush, a, w):
+    """{layout: ms or an error string} of ``_library_int_mm``, and the
+    faster layout's time (None where no layout ran)."""
+    times = {}
+    for layout, fn in _library_int_mm(torch, a, w).items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            times[layout] = time_ms(torch, fn, flush)
+        except RuntimeError as e:   # a layout cuBLAS refuses
+            times[layout] = f"refused: {str(e).splitlines()[0][:120]}"
+    ok = [t for t in times.values() if isinstance(t, float)]
+    return times, (min(ok) if ok else None)
+
+
+def time_case(torch, flush, gen, m, k, n, approx, plain_iters=10):
+    from repro_torch.kernels.bitparticle_matmul import ops
     a, w, sa, sw = _rand_case(torch, gen, m, k, n)
     row = {"m": m, "k": k, "n": n, "mode": "approx" if approx else "exact"}
-    row["ms"] = time_ms(torch, lambda: bp_matmul(
+    if m > ops.GEMV_MAX_M:
+        plan = ops.tile_plan(ops._sm_count(a.device), m, n, k, approx)
+        row["tile_plan"] = plan
+        row["route"] = ("wgmma" if ops.tile_uses_wgmma(plan[0], plan[1],
+                                                       approx) else "mma")
+    row["ms"] = time_ms(torch, lambda: ops.bp_matmul(
         a, w, sa, sw, approx=approx, backend="kernel"), flush)
-    row["plain_ms"] = time_ms(torch, lambda: bp_matmul(
-        a, w, sa, sw, approx=approx, backend="plain"), flush, iters=10)
-    lib = None if approx else _library_int_mm(torch, a, w)
-    row["library_ms"] = None if lib is None else time_ms(torch, lib, flush)
+    row["plain_ms"] = time_ms(torch, lambda: ops.bp_matmul(
+        a, w, sa, sw, approx=approx, backend="plain"), flush,
+        iters=plain_iters)
+    row["library_ms_by_layout"], row["library_ms"] = (
+        ({}, None) if approx else library_times(torch, flush, a, w))
     row["bound_ms"], row["bound_by"] = matmul_bound(m, k, n, approx)
     return row
 
@@ -615,21 +700,40 @@ def phase_kernel_time(torch, gpu, flush):
     gen = torch.Generator(device="cuda").manual_seed(1)
     floor = event_floor_ms(torch, flush)
     rows = []
-    for m in (4, 8, 256):
+    for m in (4, 8):
         for k, n in QWEN_KN:
             for _, approx in MODES:
                 rows.append(time_case(torch, flush, gen, m, k, n, approx))
-    for m in (4, 8):
         for k, n in RWKV_KN:
             for _, approx in MODES:
                 rows.append(time_case(torch, flush, gen, m, k, n, approx))
     ops.reset_launches()
     emit({"phase": "kernel_time", "gpu": gpu, "kernel": "bp_matmul",
-          "shape": "qwen2-1.5b's projections at M 4, 8 (decode) and 256 "
-                   "(prefill); rwkv6-7b's decode projections and lm_head "
-                   "at M 4 and 8",
-          "library": "torch._int_mm (exact mode, M > 16 only)",
+          "route": "decode GEMV (bp_gemv_kernel, M <= 8)",
+          "shape": "qwen2-1.5b's projections and rwkv6-7b's decode "
+                   "projections and lm_head at M 4 and 8",
+          "library": "none: torch._int_mm refuses M <= 16",
           "event_floor_ms": floor, "rows": rows})
+    tile_rows = []
+    for m, kns in PREFILL_TIME:
+        for k, n in kns:
+            for _, approx in MODES:
+                # the plain version's float64 products take milliseconds
+                # at the largest shapes: fewer of them
+                tile_rows.append(time_case(
+                    torch, flush, gen, m, k, n, approx,
+                    plain_iters=3 if m * k * n > 2 ** 34 else 10))
+    ops.reset_launches()
+    emit({"phase": "kernel_time", "gpu": gpu, "kernel": "bp_matmul",
+          "route": "prefill tiles (M > 8): bp_wgmma_kernel for exact "
+                   "mode's larger tiles, bp_tile_kernel (mma.sync) else",
+          "shape": "the serves' prefill rows: qwen2-1.5b's projections at "
+                   "M 64, 256, 512 and 2048, rwkv6-7b's at M 64, 100 and "
+                   "256 (its lm_head takes the last position only, so the "
+                   "GEMV)",
+          "library": "torch._int_mm (exact mode), both weight layouts; "
+                     "library_ms is the faster",
+          "event_floor_ms": floor, "rows": tile_rows})
     pa_rows = [time_paged_case(torch, flush, gen, B, [L - 1] * B)
                for B in (4, 32) for L in (128, 512, 2048, 8192)]
     emit({"phase": "kernel_time", "gpu": gpu, "kernel": "paged_attention",
@@ -645,7 +749,7 @@ def phase_kernel_time(torch, gpu, flush):
                    "steps, N 64, chunk 64, bf16 r/k/v",
           "library": "none: no single PyTorch call computes WKV6",
           "rows": wkv_rows})
-    return rows + pa_rows + wkv_rows
+    return rows + tile_rows + pa_rows + wkv_rows
 
 
 def _sdpa_on_gathered(torch, q, kp, vp, tables, lens):
@@ -704,6 +808,27 @@ def _requests(serving, rng, vocab: int, n: int):
     return reqs
 
 
+def matmul_routes(stream, per_forward, head=0):
+    """The launches each of K1's routes should take in a serve, from its
+    step stream: a prefill's ``per_forward`` projections take the tile
+    kernel where its rows (group x padded length) exceed the GEMV's 8, a
+    decode step's (one row per slot) the GEMV; an untied lm_head (``head``
+    calls per forward) runs on the last positions only, so the GEMV.  Also
+    the most frequent prefill row count (the kernels line's shape)."""
+    from repro_torch.kernels.bitparticle_matmul.ops import GEMV_MAX_M
+    want, rows = {"gemv": 0, "tile": 0}, []
+    for r in stream:
+        if r["kind"] == "prefill":
+            m = r["group_size"] * r["pad_to"]
+            rows.append(m)
+            want["tile" if m > GEMV_MAX_M else "gemv"] += per_forward
+            want["gemv"] += head
+        elif r["kind"] == "decode":
+            want["gemv"] += per_forward + head
+    common = max(set(rows), key=lambda m: (rows.count(m), m)) if rows else 0
+    return want, common
+
+
 def build_model(torch):
     """Full-width, full-depth qwen2-1.5b in bp_exact: random weights from
     seed 0, every dense weight quantized to int8 once.  Both serve phases
@@ -759,9 +884,12 @@ def phase_serve(torch, gpu, model, n_requests=8, n_slots=4, lead_window=4):
                             sched_cfg=sched)
     report = loop.run()
     torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
+    launches = {"bp_matmul": ops.LAUNCHES["bp_matmul"],
+                "bp_matmul_gemv": ops.LAUNCHES["gemv"],
+                "bp_matmul_tile": ops.LAUNCHES["tile"]}
     n_prefill = sum(1 for r in loop.stream if r["kind"] == "prefill")
     expected = 7 * cfg.num_layers * (n_prefill + report.steps)
+    routes, prefill_m = matmul_routes(loop.stream, 7 * cfg.num_layers)
     step_ms = [1e3 * r["wall_s"] for r in loop.stream
                if r["kind"] == "decode"]
     toks = {r.request_id: r.tokens.tolist() for r in report.results}
@@ -814,6 +942,10 @@ def phase_serve(torch, gpu, model, n_requests=8, n_slots=4, lead_window=4):
         "total_new_tokens": report.total_new_tokens,
         "bp_matmul_launches": launches["bp_matmul"],
         "expected_launches": expected,
+        "bp_matmul_launches_by_route": {
+            r: launches[f"bp_matmul_{r}"] for r in routes},
+        "expected_launches_by_route": routes,
+        "common_prefill_rows": prefill_m,
         "plain_backend_launches": plain_launches,
         "tokens_equal_plain_backend": toks == toks_plain,
         "generate_equal_serve": not flips,
@@ -832,12 +964,16 @@ def phase_serve(torch, gpu, model, n_requests=8, n_slots=4, lead_window=4):
     check(launches["bp_matmul"] == expected,
           f"bp_matmul launched {launches['bp_matmul']} times on the main "
           f"path, expected {expected}")
+    for r, want in routes.items():
+        got = launches[f"bp_matmul_{r}"]
+        check(got == want, f"bp_matmul's {r} route launched {got} times, "
+                           f"expected {want}")
     check(plain_launches == 0, "the plain backend launched the kernel")
     check(toks == toks_plain, "kernel and plain-version serves disagree")
     bad = [f for f in flips if not f["near_tie"]]
     check(not bad, f"generate() differs from serve() beyond a near-tie: "
                    f"{bad}")
-    return result, launches
+    return result, {**launches, "prefill_rows": prefill_m}
 
 
 def _paged_requests(serving, rng, vocab: int, n: int, system_len=256):
@@ -886,6 +1022,8 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
 
     def counts():
         return {"bp_matmul": bp_ops.LAUNCHES["bp_matmul"],
+                "bp_matmul_gemv": bp_ops.LAUNCHES["gemv"],
+                "bp_matmul_tile": bp_ops.LAUNCHES["tile"],
                 "paged_attention": pa_ops.LAUNCHES["paged_attention"],
                 "routed_plain_int8_kv": pa_ops.ROUTED_PLAIN["int8_kv"]}
 
@@ -922,7 +1060,10 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
     step_ms = [1e3 * r["wall_s"] for r in loop.stream
                if r["kind"] == "decode"]
     toks = {r.request_id: r.tokens.tolist() for r in report.results}
+    routes, _ = matmul_routes(loop.stream, 7 * cfg.num_layers)
     expected = {"bp_matmul": 7 * cfg.num_layers * (n_prefill + report.steps),
+                "bp_matmul_gemv": routes["gemv"],
+                "bp_matmul_tile": routes["tile"],
                 "paged_attention": cfg.num_layers * report.steps}
 
     # -- the same serve through the plain versions of both kernels, and the
@@ -990,8 +1131,9 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
               f"expected {want}")
     check(launches["routed_plain_int8_kv"] == 0,
           "paged attention was routed to the plain version")
-    check(plain_launches["bp_matmul"] == plain_launches["paged_attention"]
-          == 0, "the plain backend launched a kernel")
+    check(not any(v for k, v in plain_launches.items()
+                  if k != "routed_plain_int8_kv"),
+          f"the plain backend launched a kernel: {plain_launches}")
     check(report.prefix_hit_blocks > 0, "no prefix-sharing hit")
     check(report.n_preemptions >= 1, f"the pool of {num_blocks} blocks "
                                      f"never ran dry")
@@ -1140,6 +1282,8 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
 
     def counts():
         return {"bp_matmul": bp_ops.LAUNCHES["bp_matmul"],
+                "bp_matmul_gemv": bp_ops.LAUNCHES["gemv"],
+                "bp_matmul_tile": bp_ops.LAUNCHES["tile"],
                 "paged_attention": pa_ops.LAUNCHES["paged_attention"],
                 "wkv6": wkv_ops.LAUNCHES["wkv6"]}
 
@@ -1178,7 +1322,10 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
     step_ms = [1e3 * r["wall_s"] for r in loop.stream
                if r["kind"] == "decode"]
     toks = {r.request_id: r.tokens.tolist() for r in report.results}
+    routes, prefill_m = matmul_routes(loop.stream, 7 * L, head=1)
     expected = {"bp_matmul": (7 * L + 1) * (len(prefills) + report.steps),
+                "bp_matmul_gemv": routes["gemv"],
+                "bp_matmul_tile": routes["tile"],
                 "wkv6": L * len(eligible), "paged_attention": 0}
 
     # -- the model's float32 noise floor.  Random-init rwkv6-7b in bp_exact
@@ -1295,8 +1442,9 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
     shapes = [(r["group_size"] * cfg.d_model // cfg.rwkv_head_dim,
                r["pad_to"]) for r in eligible]
     shape = max(set(shapes), key=lambda sh: (shapes.count(sh), sh))
-    return result, launches, {"R": shape[0], "T": shape[1],
-                              "N": cfg.rwkv_head_dim, "chunk": chunk}
+    return result, {**launches, "prefill_rows": prefill_m}, {
+        "R": shape[0], "T": shape[1], "N": cfg.rwkv_head_dim,
+        "chunk": chunk}
 
 
 def wkv6_summary(torch, flush, shape, launches):
@@ -1321,7 +1469,8 @@ def wkv6_summary(torch, flush, shape, launches):
 
 
 #: device-kernel name fragments of each of the port's CUDA kernels
-KERNEL_SYMBOLS = {"bp_matmul": ("bp_gemv", "bp_tile"),
+KERNEL_SYMBOLS = {"bp_matmul_gemv": ("bp_gemv",),
+                  "bp_matmul_tile": ("bp_tile", "bp_wgmma"),
                   "paged_attention": ("paged_attention_kernel",),
                   "wkv6": ("wkv6_chunked_kernel",)}
 
@@ -1399,12 +1548,14 @@ def _leaves(tree):
         yield tree
 
 
-def time_chain(torch, flush, gen, m, kn):
+def time_chain(torch, flush, gen, m, kn, library=False):
     """Calls of the BitParticle matmul (exact, fused dequant) at M = m, one
     per (K, N) of ``kn``, timed back to back in this run beside the plain
-    version and the bound: (ms, plain_ms, bound_ms, bound_by, max_abs_err).
-    The calls are one dependent chain on the main path, so their bound is
-    the sum of theirs."""
+    version and the bound: (ms, plain_ms, bound_ms, bound_by, max_abs_err,
+    library).  The calls are one dependent chain on the main path, so their
+    bound is the sum of theirs.  With ``library``, also the same chain of
+    ``torch._int_mm`` calls in each weight layout ({layout: ms}; empty
+    where it refuses a shape)."""
     from repro_torch.kernels.bitparticle_matmul.ops import bp_matmul
     cases = [_rand_case(torch, gen, m, k, n) for k, n in kn]
     err = 0.0
@@ -1421,38 +1572,76 @@ def time_chain(torch, flush, gen, m, kn):
     plain_ms = time_ms(torch, run("plain"), flush, iters=10)
     bounds = [matmul_bound(m, k, n, False) for k, n in kn]
     bound_by = {by for _, by in bounds}
+    lib = {}
+    fns = [_library_int_mm(torch, a, w) for a, w, _, _ in cases]
+    if library and all(fns):
+        for layout in fns[0]:
+            calls = [f[layout] for f in fns]
+            lib[layout] = time_ms(torch, lambda: [c() for c in calls], flush)
     return (ms, plain_ms, sum(t for t, _ in bounds),
-            "bytes" if bound_by == {"bytes"} else "operations", err)
+            "bytes" if bound_by == {"bytes"} else "operations", err, lib)
 
 
 def decode_layer_summary(torch, flush, n_slots, launches):
-    """The kernels line's numbers for bp_matmul: the seven projections of
-    one qwen2-1.5b decoder layer at the main path's decode shape (M =
-    n_slots), and beside them one rwkv6-7b layer's seven projections and
-    its lm_head at the same M, each timed in this run beside the plain
-    version and the bound."""
+    """The kernels line's numbers for bp_matmul's decode GEMV: the seven
+    projections of one qwen2-1.5b decoder layer at the main path's decode
+    shape (M = n_slots), and beside them one rwkv6-7b layer's seven
+    projections and its lm_head at the same M, each timed in this run
+    beside the plain version and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    ms, plain_ms, bound_ms, bound_by, err = time_chain(
+    ms, plain_ms, bound_ms, bound_by, err, _ = time_chain(
         torch, flush, gen, n_slots, QWEN_LAYER_KN)
     extra = {}
     for name, kn in (("rwkv6_7b_layer", RWKV_LAYER_KN),
                      ("rwkv6_7b_lm_head", ((4096, 65536),))):
-        r_ms, r_plain, r_bound, r_by, r_err = time_chain(
+        r_ms, r_plain, r_bound, r_by, r_err, _ = time_chain(
             torch, flush, gen, n_slots, kn)
         err = max(err, r_err)
         extra[name] = {"ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
                        "bound_by": r_by, "max_abs_err": r_err}
     return {"name": "bp_matmul", "route": "cuda",
-            "source": "src/repro_torch/kernels/bitparticle_matmul/csrc/"
-                      "bp_matmul.cu",
+            "kernel": "bp_gemv_kernel (decode, M <= 8)",
+            "source": KERNEL_SOURCES["bp_matmul"],
             "replaces": "src/repro/kernels/bitparticle_matmul/kernel.py:93",
-            "launches": launches["bp_matmul"], "max_abs_err": err,
+            "launches": launches["bp_matmul_gemv"], "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "shape": f"one qwen2-1.5b decoder layer's 7 projections at "
                      f"M={n_slots} (decode), exact mode; torch._int_mm "
                      f"refuses M <= 16",
             **extra}
+
+
+def prefill_layer_summary(torch, flush, qwen_m, rwkv_m, launches):
+    """The kernels line's numbers for bp_matmul's prefill tile kernel: the
+    seven projections of one qwen2-1.5b decoder layer at the main path's
+    most frequent prefill row count, and beside them one rwkv6-7b layer's
+    at its serve's, each timed in this run beside the plain version, the
+    bound and the same chain of ``torch._int_mm`` calls (the faster weight
+    layout is ``library_ms``)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ms, plain_ms, bound_ms, bound_by, err, lib = time_chain(
+        torch, flush, gen, qwen_m, QWEN_LAYER_KN, library=True)
+    r_ms, r_plain, r_bound, r_by, r_err, r_lib = time_chain(
+        torch, flush, gen, rwkv_m, RWKV_LAYER_KN, library=True)
+    return {"name": "bp_matmul_tile", "route": "cuda",
+            "kernel": "bp_tile_kernel (mma.sync) and bp_wgmma_kernel "
+                      "(prefill, M > 8)",
+            "source": KERNEL_SOURCES["bp_matmul"],
+            "replaces": "src/repro/kernels/bitparticle_matmul/kernel.py:93",
+            "launches": launches["bp_matmul_tile"],
+            "max_abs_err": max(err, r_err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": min(lib.values()) if lib else None,
+            "library_ms_by_layout": lib,
+            "shape": f"one qwen2-1.5b decoder layer's 7 projections at "
+                     f"M={qwen_m} (the serve's most frequent prefill rows), "
+                     f"exact mode; library: the same chain of "
+                     f"torch._int_mm, the faster weight layout",
+            "rwkv6_7b_layer": {"m": rwkv_m, "ms": r_ms, "plain_ms": r_plain,
+                               "bound_ms": r_bound, "bound_by": r_by,
+                               "max_abs_err": r_err,
+                               "library_ms_by_layout": r_lib}}
 
 
 def paged_layer_summary(torch, flush, paged_shape, launches):
@@ -1478,10 +1667,91 @@ def paged_layer_summary(torch, flush, paged_shape, launches):
                      f"on K/V gathered dense beforehand"}
 
 
+#: tile sweep: the row counts timed beside PREFILL_TIME's (the serves'
+#: most frequent prefill rows)
+SWEEP_EXTRA = ((128, QWEN_KN), (128, RWKV_KN[:3]))
+
+
+def tile_sweep(torch, gpu, path):
+    """Every tile x K split of the prefill tile kernels at the serves'
+    prefill shapes, both modes, each launch held bit-exact against the
+    plain version and timed (``time_ms``, 10 launches), beside the plan's
+    own choice: the data ``ops.tile_plan``'s thresholds were fitted to.
+    Writes every variant's time to ``path`` and prints one line per shape
+    and mode: the plan, its time, and the fastest variant."""
+    import ctypes
+
+    from repro_torch.kernels.bitparticle_matmul import build, ops
+    lib = build.library()
+    flush = Flusher(torch)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sms = ops._sm_count(torch.device("cuda"))
+    stream = torch.cuda.current_stream().cuda_stream
+    tiles = {False: ops.TILE_SHAPES_WGMMA + ops.TILE_SHAPES_MMA,
+             True: ops.TILE_SHAPES_APPROX}
+    rows = []
+    for m, kns in PREFILL_TIME + SWEEP_EXTRA:
+        for k, n in kns:
+            a, w, sa, sw = _rand_case(torch, gen, m, k, n)
+            out = torch.empty(m, n, device="cuda")
+            steps = -(-k // ops.TILE_K)
+            for _, approx in MODES:
+                want = ops.bp_matmul(a, w, sa, sw, approx=approx,
+                                     backend="plain")
+
+                def launch(plan):
+                    rc = lib.bp_tile_launch(
+                        *(ctypes.c_void_p(t.data_ptr())
+                          for t in (a, w, sa, sw, out)),
+                        m, n, k, int(approx), 1, 1, *plan,
+                        ctypes.c_void_p(stream))
+                    check(rc == 0, f"tile launch {plan} failed: {rc}")
+
+                variants = {}
+                for bm, bn in tiles[approx]:
+                    n_tiles = -(-m // bm) * -(-n // bn)
+                    for split in (1, 2, 3, 4, 6, 8):
+                        if split > max(1, steps // 2) or not (
+                                8 <= n_tiles * split <= 12 * sms):
+                            continue
+                        kslice = -(-steps // split) * ops.TILE_K
+                        stages = max(ops.TILE_MIN_STAGES, min(
+                            ops.TILE_MAX_STAGES,
+                            ops.TILE_SMEM // ((bm + bn) * ops.TILE_K)))
+                        plan = (bm, bn, -(-k // kslice), kslice, stages)
+                        out.zero_()
+                        launch(plan)
+                        torch.cuda.synchronize()
+                        check(torch.equal(out, want),
+                              f"tile plan {plan} disagrees at {m}x{k}x{n}")
+                        variants[str(plan)] = 1e3 * time_ms(
+                            torch, lambda: launch(plan), flush, iters=10)
+                plan = ops.tile_plan(sms, m, n, k, approx)
+                best = min(variants, key=variants.get)
+                row = {"m": m, "k": k, "n": n,
+                       "mode": "approx" if approx else "exact",
+                       "plan": plan, "plan_us": 1e3 * time_ms(
+                           torch, lambda: launch(plan), flush, iters=10),
+                       "best": best, "best_us": variants[best],
+                       "variants_us": variants}
+                rows.append(row)
+                print(json.dumps({k: row[k] for k in (
+                    "m", "k", "n", "mode", "plan", "plan_us", "best",
+                    "best_us")}), flush=True)
+    pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
+    pathlib.Path(path).write_text(json.dumps(
+        {"gpu": gpu, "timing": "time_ms, 10 launches, L2 flushed",
+         "rows": rows}, indent=1))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--details", default=None, metavar="PATH",
                     help="also write every phase's record to this JSON file")
+    ap.add_argument("--tile-sweep", default=None, metavar="PATH",
+                    help="instead of the smoke test, time every tile x K "
+                         "split of the prefill tile kernels at the serves' "
+                         "prefill shapes and write them to this JSON file")
     args = ap.parse_args()
     try:
         import torch
@@ -1500,6 +1770,14 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     gpu = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    if args.tile_sweep:
+        try:
+            tile_sweep(torch, gpu, args.tile_sweep)
+        except CheckFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(smi, flush=True)
+        return 0
     records = []
     t0 = _START[0] = time.perf_counter()
     try:
@@ -1521,12 +1799,15 @@ def main() -> int:
         del rwkv
         torch.cuda.empty_cache()
         bp = decode_layer_summary(torch, flush, serve["n_slots"], launches)
-        bp["launches_by_path"] = {"serve": launches["bp_matmul"],
-                                  "serve_paged": paged_launches["bp_matmul"],
-                                  "serve_rwkv": rwkv_launches["bp_matmul"]}
+        tile = prefill_layer_summary(torch, flush, launches["prefill_rows"],
+                                     rwkv_launches["prefill_rows"], launches)
+        paths = {"serve": launches, "serve_paged": paged_launches,
+                 "serve_rwkv": rwkv_launches}
+        for entry, key in ((bp, "bp_matmul_gemv"), (tile, "bp_matmul_tile")):
+            entry["launches_by_path"] = {p: c[key] for p, c in paths.items()}
         pa = paged_layer_summary(torch, flush, paged_shape, paged_launches)
         wk = wkv6_summary(torch, flush, rwkv_shape, rwkv_launches)
-        summary = [bp, pa, wk]
+        summary = [bp, tile, pa, wk]
         for k in summary:
             check(k["launches"] > 0,
                   f"{k['name']} was never launched on its main path")

@@ -16,6 +16,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
+    fn = lib.bp_tile_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary("bp_matmul", (CSRC / "bp_matmul.cu",), _bind)

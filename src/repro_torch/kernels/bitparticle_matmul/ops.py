@@ -3,7 +3,8 @@
 
 ``bp_matmul`` checks device, dtype, shape, layout and contiguity, allocates
 the output, launches the kernel on PyTorch's current stream and counts the
-launch in :data:`LAUNCHES`.  Backends:
+launch in :data:`LAUNCHES` (every call under ``bp_matmul``, and under the
+route it took: ``gemv`` or ``tile``).  Backends:
 
   ``auto``    the kernel for CUDA tensors, the plain version (``ref.py``)
               for CPU tensors: the choice follows where the tensor lies,
@@ -14,10 +15,13 @@ launch in :data:`LAUNCHES`.  Backends:
 There is no fallback: a failed build or launch raises.
 
 Decode calls (at most :data:`GEMV_MAX_M` rows) take the kernel's split-K
-GEMV, whose K slices :func:`gemv_plan` chooses from the shapes alone.  Split
-sums meet in an int32 workspace that the kernel leaves zeroed
+GEMV, whose K slices :func:`gemv_plan` chooses from the shapes alone.  Its
+split sums meet in an int32 workspace that the kernel leaves zeroed
 (:func:`_workspace`, one per device, grown on demand); calls on one device
 must therefore run on one stream at a time, as the serving path does.
+Prefill calls (more rows) take the tensor-core tile kernels, whose tiles,
+K split and ring :func:`tile_plan` chooses; the K slices of one output
+tile run as a thread block cluster and sum through its shared memory.
 
 Unlike the TPU wrapper there is no host-side padding (the kernel masks
 ragged edges itself) and the weight must be K-major: ``w_q`` is the logical
@@ -40,7 +44,7 @@ BACKENDS = ("auto", "plain", "kernel")
 
 #: kernel launches since the last :func:`reset_launches` (plain-version
 #: calls are not counted)
-LAUNCHES = {"bp_matmul": 0}
+LAUNCHES = {"bp_matmul": 0, "gemv": 0, "tile": 0}
 
 #: rows up to which the kernel takes its decode GEMV (``bp_gemv_kernel``)
 GEMV_MAX_M = 8
@@ -55,11 +59,40 @@ GEMV_BLOCKS_PER_SM = 2
 #: range before the plan stops giving a column group more warps
 GEMV_MIN_FILL = 0.7
 
+#: the prefill tile kernels (M > GEMV_MAX_M): K bytes of one ring stage
+TILE_K = 128
+#: the (BM, BN) output tiles built for each route, largest first.  Exact
+#: mode takes ``wgmma`` (``bp_wgmma_kernel``) on 64 x 64 tiles and up and
+#: ``mma.sync`` (``bp_tile_kernel``) on the smaller ones, which give small
+#: shapes more blocks; approx mode forms its particles in the ``mma.sync``
+#: fragment registers on every tile.
+TILE_SHAPES_WGMMA = ((128, 128), (128, 64), (64, 128), (64, 64))
+TILE_SHAPES_MMA = ((32, 128), (32, 64))
+TILE_SHAPES_APPROX = ((128, 128), (128, 64), (64, 128), (64, 64), (32, 128),
+                      (32, 64))
+#: shared memory a tile block's ring may take (two blocks fit an SM), and
+#: the ring's depth in stages
+TILE_SMEM = 96 * 1024
+TILE_MIN_STAGES = 3
+TILE_MAX_STAGES = 6
+#: K slices of one output tile at most: they form one thread block cluster
+TILE_MAX_SPLIT = 8
+#: the plan's thresholds, fitted to a sweep of every tile x split at the
+#: serves' prefill shapes on the H100 (``chip_smoke.py --tile-sweep``,
+#: PERF.md): the tile is the largest whose grid gives TILE_FILL of the SMs
+#: a block; where the tiles give fewer than TILE_SPLIT_FILL blocks per SM,
+#: or K is longer than TILE_MAX_SLICE stages, K is split into a power of
+#: two of slices (clusters of 3 or 6 blocks pack the SMs worse)
+TILE_FILL = 0.25
+TILE_SPLIT_FILL = 1.5
+TILE_MAX_SLICE = 64
+
 _WORKSPACE: dict = {}
 
 
 def reset_launches() -> None:
-    LAUNCHES["bp_matmul"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
 def kmajor(w: torch.Tensor) -> torch.Tensor:
@@ -102,6 +135,54 @@ def gemv_plan(sms: int, m: int, n: int, k: int, approx: bool
             break
     tiles = -(-n // (GEMV_WARP_COLS * (GEMV_WARPS // wk)))
     return wk, split, kslice, min(tiles, resident)
+
+
+def tile_uses_wgmma(bm: int, bn: int, approx: bool) -> bool:
+    """Whether a tile plan's (bm, bn) runs on ``wgmma`` (else
+    ``mma.sync``)."""
+    return not approx and (bm, bn) in TILE_SHAPES_WGMMA
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(sms: int, m: int, n: int, k: int, approx: bool
+              ) -> tuple[int, int, int, int, int]:
+    """(bm, bn, split, kslice, stages) of the prefill tile kernels.
+
+    The tile is the first of the mode's tiles (exact: the ``wgmma`` ones,
+    then the ``mma.sync`` ones; approx: its ``mma.sync`` ones; largest
+    first) that is no taller than M's power of two (at least 32) and whose
+    grid gives :data:`TILE_FILL` of the SMs a block, else the smallest.
+    Where the tiles give fewer than :data:`TILE_SPLIT_FILL` blocks per SM,
+    K is split across a cluster of blocks: about that many blocks per SM
+    over the tiles, at least one slice per :data:`TILE_MAX_SLICE` stages of
+    K, at most one per stage and :data:`TILE_MAX_SPLIT`, rounded down to a
+    power of two.  ``kslice`` is a multiple of :data:`TILE_K` and covers K
+    exactly: split * kslice >= k > (split - 1) * kslice.  The ring takes
+    the stages that fit :data:`TILE_SMEM`, 3 to 6."""
+    if m <= GEMV_MAX_M or n < 1 or k < 1:
+        raise ValueError(f"no tile plan for M={m}, N={n}, K={k}")
+
+    def tiles(t):
+        return -(-m // t[0]) * -(-n // t[1])
+
+    cap = max(32, 1 << (m - 1).bit_length())
+    shapes = (TILE_SHAPES_APPROX if approx
+              else TILE_SHAPES_WGMMA + TILE_SHAPES_MMA)
+    cands = [t for t in shapes if t[0] <= cap]
+    bm, bn = next((t for t in cands if tiles(t) >= TILE_FILL * sms),
+                  cands[-1])
+    steps = -(-k // TILE_K)
+    want = 1
+    if tiles((bm, bn)) < TILE_SPLIT_FILL * sms:
+        want = max(min(int(TILE_SPLIT_FILL * sms / tiles((bm, bn)) + 0.5),
+                       steps),
+                   -(-steps // TILE_MAX_SLICE))
+        want = 1 << (min(want, TILE_MAX_SPLIT).bit_length() - 1)
+    kslice = -(-steps // want) * TILE_K
+    split = -(-k // kslice)
+    stages = max(TILE_MIN_STAGES,
+                 min(TILE_MAX_STAGES, TILE_SMEM // ((bm + bn) * TILE_K)))
+    return bm, bn, split, kslice, stages
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,25 +274,30 @@ def bp_matmul(a_q: torch.Tensor, w_q: torch.Tensor,
         return out.reshape(*lead, n)
     vec = (k % 16 == 0 and a2.data_ptr() % 16 == 0
            and w_q.data_ptr() % 16 == 0)
-    wk, split, kslice, n_blocks, ws_ptr, cnt_ptr = 1, 1, 16, 1, 0, 0
-    if m <= GEMV_MAX_M:
-        wk, split, kslice, n_blocks = gemv_plan(_sm_count(dev), m, n, k,
-                                                bool(approx))
-        if split > 1:
-            ws, cnt = _workspace(dev, m, n)
-            ws_ptr, cnt_ptr = ws.data_ptr(), cnt.data_ptr()
+    sms = _sm_count(dev)
     from repro_torch.kernels.bitparticle_matmul.build import library
     lib = library()
+    ptrs = [ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+            for t in (a2, w_q, sa, sw, out)]
+    if m <= GEMV_MAX_M:
+        route = "gemv"
+        wk, split, kslice, n_blocks = gemv_plan(sms, m, n, k, bool(approx))
+        ws, cnt = _workspace(dev, m, n) if split > 1 else (None, None)
+        args = (split, kslice, wk, n_blocks,
+                ctypes.c_void_p(0 if ws is None else ws.data_ptr()),
+                ctypes.c_void_p(0 if cnt is None else cnt.data_ptr()))
+        launch = lib.bp_matmul_launch
+    else:
+        route = "tile"
+        args = tile_plan(sms, m, n, k, bool(approx))
+        launch = lib.bp_tile_launch
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.bp_matmul_launch(
-            ctypes.c_void_p(a2.data_ptr()), ctypes.c_void_p(w_q.data_ptr()),
-            ctypes.c_void_p(sa.data_ptr() if fuse else 0),
-            ctypes.c_void_p(sw.data_ptr() if fuse else 0),
-            ctypes.c_void_p(out.data_ptr()), m, n, k, int(approx), int(fuse),
-            int(vec), split, kslice, wk, n_blocks, ctypes.c_void_p(ws_ptr),
-            ctypes.c_void_p(cnt_ptr), ctypes.c_void_p(stream))
+        rc = launch(*ptrs, m, n, k, int(approx), int(fuse), int(vec), *args,
+                    ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"bp_matmul kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"bp_matmul kernel launch failed ({route}): CUDA "
+                           f"error {rc}")
     LAUNCHES["bp_matmul"] += 1
+    LAUNCHES[route] += 1
     return out.reshape(*lead, n)

@@ -2,15 +2,22 @@
 
 The kernels run only on the card, but how their work is cut is decided in
 Python from shapes alone: the paged-attention kernel's split of each
-sequence's positions over blocks (``paged_attention.ops.split_plan``) and
-the BitParticle decode GEMV's cut of K and of the columns
-(``bitparticle_matmul.ops.gemv_plan``).  These tests hold each plan to what
-the kernel assumes: every position (page) or K byte is covered exactly
-once, slices start 16-byte aligned, no grid is empty, and the shared
-memory the plan implies fits.
+sequence's positions over blocks (``paged_attention.ops.split_plan``), the
+BitParticle decode GEMV's cut of K and of the columns
+(``bitparticle_matmul.ops.gemv_plan``) and its prefill tile kernel's tiles,
+K split and ring (``bitparticle_matmul.ops.tile_plan``).  These tests hold
+each plan to what the kernel assumes: every position (page), output or K
+byte is covered exactly once, slices start aligned, no grid is empty, and
+the shared memory the plan implies fits.  The last test checks, in numpy,
+the word-wise particle identities the kernel applies to its fragment
+registers in approx mode.
 """
 
+import numpy as np
 import pytest
+import torch
+
+from repro_torch.core.bp_matmul import signed_low_particles
 
 from repro_torch.kernels.bitparticle_matmul import ops as bp_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -125,3 +132,163 @@ def test_gemv_plan_splits_k_only_for_shared_memory():
 def test_gemv_plan_refuses_rows_outside_the_gemv(m):
     with pytest.raises(ValueError, match="no GEMV plan"):
         bp_ops.gemv_plan(132, m, 64, 64, False)
+
+
+# (M, K, N): the serves' prefill shapes (qwen2-1.5b at M 16-2048 including
+# the paged serve's buckets, rwkv6-7b at its exact prompt lengths), the
+# reference's ragged shapes and a few more ragged ones; M past the GEMV
+TILE_SHAPES = [(m, k, n) for m in (9, 16, 17, 32, 64, 128, 256, 512, 1024,
+                                   2048)
+               for k, n in ((1536, 1536), (1536, 256), (1536, 8960),
+                            (8960, 1536))]
+TILE_SHAPES += [(m, k, n) for m in (64, 100, 128, 192, 256)
+                for k, n in ((4096, 4096), (4096, 14336), (14336, 4096))]
+TILE_SHAPES += [(16, 256, 384), (256, 256, 256), (300, 520, 260),
+                (17, 520, 17), (100, 1000, 260), (2048, 520, 17),
+                (9, 33, 17), (9, 1, 1), (257, 64, 8), (4096, 64, 65536),
+                (33, 100000, 64)]
+
+
+@pytest.mark.parametrize("approx", [False, True], ids=["exact", "approx"])
+@pytest.mark.parametrize("sms", [132, 16])
+@pytest.mark.parametrize("m,k,n", TILE_SHAPES)
+def test_tile_plan_covers_the_product_once_within_its_ring(m, k, n, sms,
+                                                           approx):
+    bm, bn, split, kslice, stages = bp_ops.tile_plan(sms, m, n, k, approx)
+    # a tile the plan's route is built for, no taller than M needs
+    if approx:
+        assert (bm, bn) in bp_ops.TILE_SHAPES_APPROX
+    else:
+        assert (bm, bn) in (bp_ops.TILE_SHAPES_MMA
+                            + bp_ops.TILE_SHAPES_WGMMA)
+    assert bm <= max(32, 1 << (m - 1).bit_length())
+    # the output tiles cover M x N once: the grid's last tiles are the only
+    # ragged ones
+    m_tiles, n_tiles = -(-m // bm), -(-n // bn)
+    assert (m_tiles - 1) * bm < m <= m_tiles * bm
+    assert (n_tiles - 1) * bn < n <= n_tiles * bn
+    # the K slices start on a ring stage and tile K exactly, none empty
+    assert kslice % bp_ops.TILE_K == 0
+    assert split * kslice >= k > (split - 1) * kslice
+    covered = np.zeros(k, np.int32)
+    for z in range(split):
+        covered[z * kslice:min(k, (z + 1) * kslice)] += 1
+    assert (covered == 1).all()
+    # at most one cluster of slices per tile, and where the tiles leave SMs
+    # idle no slice longer than the maximum, unless the cluster's limit
+    # forces it
+    assert 1 <= split <= bp_ops.TILE_MAX_SPLIT
+    steps = -(-k // bp_ops.TILE_K)
+    fill = bp_ops.TILE_SPLIT_FILL * sms
+    if m_tiles * n_tiles < fill:
+        assert kslice <= bp_ops.TILE_K * max(
+            bp_ops.TILE_MAX_SLICE, -(-steps // bp_ops.TILE_MAX_SPLIT))
+    # the ring fits the block's shared memory budget and keeps 3-6 stages
+    assert bp_ops.TILE_MIN_STAGES <= stages <= bp_ops.TILE_MAX_STAGES
+    assert stages * (bm + bn) * bp_ops.TILE_K <= bp_ops.TILE_SMEM
+    # where the tiles leave SMs idle, a split brings the grid to within a
+    # quarter of the planned blocks, as far as K's stages and one cluster
+    # allow (the plan rounds to a power of two of slices, down)
+    grid = m_tiles * n_tiles * split
+    if m_tiles * n_tiles < fill:
+        assert 4 * grid >= min(
+            fill, m_tiles * n_tiles * min(steps, bp_ops.TILE_MAX_SPLIT))
+    # and no split where the tiles alone fill it and K is not long
+    if m_tiles * n_tiles >= fill:
+        assert split == 1
+
+
+@pytest.mark.parametrize("args", [(132, 8, 64, 64), (132, 1, 64, 64),
+                                  (132, 0, 64, 64), (132, 64, 0, 64),
+                                  (132, 64, 64, 0)])
+def test_tile_plan_refuses_gemv_rows_and_empty_shapes(args):
+    with pytest.raises(ValueError, match="no tile plan"):
+        bp_ops.tile_plan(*args, False)
+
+
+def test_tile_plan_splits_k_only_where_tiles_leave_sms_idle():
+    # qwen2-1.5b's down projection (K 8960) at 256 rows: large tiles, K
+    # split across a cluster, a power of two of slices
+    bm, bn, split, _, _ = bp_ops.tile_plan(132, 256, 1536, 8960, False)
+    assert split > 1 and split & (split - 1) == 0
+    assert bp_ops.tile_uses_wgmma(bm, bn, False)
+    # its gate/up at 2048 rows: 1120 wgmma tiles of 128 x 128, one slice
+    bm, bn, split, _, _ = bp_ops.tile_plan(132, 2048, 8960, 1536, False)
+    assert (bm, bn, split) == (128, 128, 1)
+
+
+def test_tile_plan_routes_exact_and_approx():
+    # exact mode: wgmma where its tiles fill the card, the small mma.sync
+    # tiles for small shapes; approx mode always mma.sync
+    big = bp_ops.tile_plan(132, 2048, 8960, 1536, False)
+    small = bp_ops.tile_plan(132, 64, 1536, 1536, False)
+    assert bp_ops.tile_uses_wgmma(big[0], big[1], False)
+    assert not bp_ops.tile_uses_wgmma(small[0], small[1], False)
+    for m, k, n in TILE_SHAPES:
+        bm, bn = bp_ops.tile_plan(132, m, n, k, True)[:2]
+        assert not bp_ops.tile_uses_wgmma(bm, bn, True)
+
+
+def _words(b):
+    """Little-endian 32-bit words of 4 bytes each (as the kernel's
+    fragment registers hold them)."""
+    return b.astype(np.uint8).view(np.uint32)
+
+
+def _bytes(w):
+    return w.view(np.uint8).view(np.int8)
+
+
+def _neg_lsb(w):
+    return (w >> 7) & np.uint32(0x01010101)
+
+
+def _rem(w, n1, mask):
+    """bp_matmul.cu's rem16 (mask 15) and rem4 (mask 3): the truncated
+    remainder sign(v) * (|v| & mask) of each byte lane."""
+    m = np.uint32(mask * 0x01010101)
+    r = w & m
+    nz = ((r + m) >> (4 if mask == 15 else 2)) & n1
+    return r + nz * np.uint32(0x100 - mask - 1)
+
+
+def _vsub4(x, y):
+    """__vsub4: per-byte x - y, modulo 256 in each lane."""
+    d = x.view(np.uint8).astype(np.int16) - y.view(np.uint8).astype(np.int16)
+    return (d & 0xFF).astype(np.uint8).view(np.uint32)
+
+
+def test_fragment_particle_identities_match_the_plain_version():
+    # every int8 value, -128 included, packed four to a word
+    v = np.arange(-128, 128, dtype=np.int8)
+    w = _words(v)
+    n1 = _neg_lsb(w)
+    r4, r16 = _rem(w, n1, 3), _rem(w, n1, 15)
+    q0, q1, qlow4 = (t.numpy() for t in signed_low_particles(
+        torch.from_numpy(v)))
+    # W's particles: Wlow4 = rem16(w), W0 = rem4(w)
+    np.testing.assert_array_equal(_bytes(r16).astype(np.int32), qlow4)
+    np.testing.assert_array_equal(_bytes(r4).astype(np.int32), q0)
+    # A's negated particles: -A0 = 0 - rem4(a), -4 A1 = rem4(a) - rem16(a)
+    zero = np.zeros_like(w)
+    np.testing.assert_array_equal(_bytes(_vsub4(zero, r4)).astype(np.int32),
+                                  -q0)
+    np.testing.assert_array_equal(_bytes(_vsub4(r4, r16)).astype(np.int32),
+                                  -4 * q1)
+    # so the kernel's three contractions sum to the plain version's approx
+    rng = np.random.default_rng(0)
+    a = rng.integers(-128, 128, size=(8, 64)).astype(np.int8)
+    b = rng.integers(-128, 128, size=(64, 8)).astype(np.int8)
+    aw, bw = _words(a), _words(np.ascontiguousarray(b.T))
+    an1, bn1 = _neg_lsb(aw), _neg_lsb(bw)
+    ar4 = _rem(aw, an1, 3)
+    p0 = _bytes(_vsub4(np.zeros_like(aw), ar4)).astype(np.int64)
+    p1 = _bytes(_vsub4(ar4, _rem(aw, an1, 15))).astype(np.int64)
+    wl = _bytes(_rem(bw, bn1, 15)).astype(np.int64)
+    w0 = _bytes(_rem(bw, bn1, 3)).astype(np.int64)
+    got = (a.astype(np.int64) @ b.astype(np.int64) + p0.reshape(8, 64)
+           @ wl.reshape(8, 64).T + p1.reshape(8, 64) @ w0.reshape(8, 64).T)
+    from repro_torch.kernels.bitparticle_matmul import ref
+    want = ref.bp_matmul_ref(torch.from_numpy(a), torch.from_numpy(b),
+                             "bp_approx").numpy()
+    np.testing.assert_array_equal(got, want)
