@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--details PATH]
     python3 chip_smoke.py --tile-sweep PATH
+    python3 chip_smoke.py --wkv-time PATH
 
 Runs from the root of a checkout and needs one CUDA device; it exits
 nonzero, printing no result, when CUDA is unavailable or the port's sources
@@ -29,19 +30,24 @@ are missing.  Phases, one JSON line each:
                of 8192 positions, at lengths either side of a ring stage and
                a split, on pages shared across sequences, plus a length-0
                all-trash case;
-               the chunked WKV6 recurrence on the reference's kernel-test
-               shapes (float32 within 2e-4, bf16 r/k/v within 3e-2), at
-               rwkv6-7b's prefill shapes and one 4096-step row set (bf16),
-               and through the model-layout wrapper with a padded tail,
-               each case with its maximum error;
+               the chunked WKV6 recurrence (its two kernels, state chain
+               and chunk outputs) on the reference's kernel-test shapes
+               (float32 within 2e-4, bf16 r/k/v within 3e-2), at rwkv6-7b's
+               prefill shapes and one 4096-step row set (bf16, the model's
+               decay range), R 64 x T 256 in float32 with that range,
+               one-chunk rows, a single 4096-step row, the plan's largest
+               row split, and through the model-layout wrapper with a
+               padded tail, each case with its maximum error;
   kernel_time  each kernel's median time (CUDA events, L2 flushed before
                each launch) beside its bound, its plain version's time and,
                where one exists, a PyTorch library call's time; the
                BitParticle matmul's GEMV at M 4 and 8 on both models'
                decode shapes, its tile kernel at the serves' prefill rows
                (qwen2-1.5b M 64-2048, rwkv6-7b M 64, 100, 256) beside
-               ``torch._int_mm`` in both weight layouts; and the time the
-               same harness gives the smallest kernel (``event_floor_ms``);
+               ``torch._int_mm`` in both weight layouts; WKV6 at rwkv6-7b's
+               prefill shapes with its plan and achieved HBM rate; and the
+               time the same harness gives the smallest kernel
+               (``event_floor_ms``);
   serve        the first main path: ``ServingEngine.serve()`` on
                full-width, full-depth qwen2-1.5b (random weights from a
                seed) in bp_exact with an int8 KV cache on the slab store,
@@ -78,6 +84,11 @@ are missing.  Phases, one JSON line each:
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits 1.
+
+``--wkv-time PATH`` runs none of that either: it builds the WKV6 library
+alone and times it at rwkv6-7b's prefill shapes (``kernel_time``'s WKV6
+rows), writing them to PATH; copied into an older checkout it times that
+checkout's kernel with the same harness, for an A/B within one call.
 
 ``--tile-sweep PATH`` runs none of that: it times every tile x K split of
 the BitParticle matmul's prefill tile kernels at the serves' prefill
@@ -126,8 +137,10 @@ RAGGED_MKN = ((8, 128, 128), (16, 256, 384), (256, 256, 256), (5, 33, 17),
 PREFILL_CHECK_M = (9, 16, 17, 64, 100, 256, 512, 2048)
 MODES = (("exact", False), ("approx", True))
 BF16_OPS_PER_S = 989e12
-# float32 outside the tensor cores
-F32_OPS_PER_S = 67e12
+# the tensor cores' dense TF32 rate
+TF32_OPS_PER_S = 495e12
+# exponentials per clock per SM on the special-function units
+SFU_PER_CLOCK_SM = 16
 
 # paged attention: the reference's ragged kernel-test shapes
 # (B, H, KH, D, n_blocks, block_size, pages_per_seq, lengths below)
@@ -148,8 +161,10 @@ PAGED_NUM_BLOCKS = 36
 WKV_REF_SHAPES = ((2, 64, 16, 16), (1, 32, 32, 32), (4, 128, 64, 64),
                   (3, 96, 8, 32))
 # rwkv6-7b prefills (R = 64 heads x requests, T steps; N 64, chunk 64):
-# one and four 256-token requests, and one 4096-token request
-WKV_SERVE_SHAPES = ((64, 256), (256, 256))
+# one 128-token request (the rwkv serve's most frequent call; the plan
+# splits each chunk's rows over two blocks there), one and four
+# 256-token requests, and one 4096-token request
+WKV_SERVE_SHAPES = ((64, 128), (64, 256), (256, 256))
 WKV_LONG_SHAPE = (64, 4096)
 
 
@@ -173,12 +188,17 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi(query: str, *fmt: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=" + ",".join(("csv", "noheader") + fmt)],
+        capture_output=True,
+        text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_line() -> str:
+    return nvidia_smi("name,power.limit")
 
 
 # ---------------------------------------------------------------------------
@@ -264,32 +284,34 @@ def attention_bound(lengths, n_heads: int, kv_heads: int, head_dim: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def wkv_bound(R: int, T: int, N: int, chunk: int = 64, esize: int = 2):
-    """(bound_ms, bound_by) of the WKV6 recurrence: the larger of bytes over
-    HBM rate (r/k/v in ``esize`` bytes, log_w, u, the state in and out and
-    the float32 output, each once) and the fewer float32 operations of its
-    two exact forms over the CUDA cores' float32 rate (a multiply-add two
-    operations, an exponential one).
+def wkv_bound(R: int, T: int, N: int, chunk: int, esize: int, sms: int,
+              sm_mhz: float):
+    """(bound_ms, bound_by) of the WKV6 recurrence: the largest of three
+    times, each for the work itself, not for how a kernel does it.
 
-    The step recurrence, per row and step: w = e^{log_w} (N), u k (N),
-    r.(u k) (2N), S' = w S + k v^T (3N^2), out = r S + (r.u k) v (2N^2 +
-    2N).  The chunked form, per row and chunk of L steps, as the kernel
-    factors it (4-step tiles, nt = L / 4): the prefix sums (LN); rE, kF,
-    r e^{lc}, k e^{lc_end - lcs}, each an exponential and a product (8LN);
-    one exponential per off-diagonal tile pair and channel (nt(nt-1)/2 N)
-    and per diagonal-tile pair (6 nt N); A's L(L-1)/2 N pair terms and
-    A v, one multiply-add each (2 L(L-1) N); the bonus (5LN); the
-    cross-chunk product (2LN^2); and the state update (2LN^2 + N^2 + N)."""
-    L, nt = chunk, chunk // 4
-    step = 5 * N * N + 6 * N
-    per_chunk = (L * N + 8 * L * N + nt * (nt - 1) // 2 * N + 6 * nt * N
-                 + 2 * L * (L - 1) * N + 5 * L * N + 4 * L * N * N
-                 + N * N + N)
-    ops = R * min(T * step, (T // L) * per_chunk)
+      bytes        r/k/v in ``esize`` bytes, log_w, u, the state in and
+                   out and the float32 output, each once, over HBM rate;
+      products     the chunked form's multiply-adds (two operations each)
+                   over the dense TF32 tensor-core rate, one pass: per row
+                   and chunk of L steps the pair matrix A and A v
+                   (L (L - 1) / 2 N each), the cross-chunk product and the
+                   state update (L N^2 each);
+      exponentials one per input decay (R T N, the fewest any exact form
+                   takes) over the special-function units' 16 per clock
+                   per SM at the card's SM clock ``sm_mhz``.
+
+    A kernel's split-TF32 passes and its per-pair exponentials are its own
+    cost, so a tensor-core kernel cannot beat this bound.  ``bound_by`` is
+    "bytes" or "operations" (products or exponentials)."""
+    L = chunk
+    per_chunk = L * (L - 1) * N + 2 * L * N * N
+    flops = 2 * R * (T // L) * per_chunk
+    exps = R * T * N
     nbytes = (3 * R * T * N * esize + 4 * R * T * N + 4 * R * N
               + 2 * 4 * R * N * N + 4 * R * T * N)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = max(flops / TF32_OPS_PER_S,
+                exps / (SFU_PER_CLOCK_SM * sms * sm_mhz * 1e6)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -570,27 +592,51 @@ def wkv_inputs(torch, gen, R, T, N, dtype, model_decay=False):
     return r, k, v, log_w, randn(R, N), randn(R, N, N) * 0.2
 
 
+def _wkv_split(torch, R, T, N, chunk):
+    """The host plan's row split for one call on this card."""
+    from repro_torch.kernels.wkv6 import ops
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ops.wkv6_plan(sms, R, T, N, chunk).row_split
+
+
 def check_wkv6(torch):
-    """The WKV6 kernel against its plain version: the reference's kernel-
-    test shapes in float32 (atol = rtol = 2e-4) and with bf16 r/k/v
+    """The WKV6 kernels against their plain version: the reference's
+    kernel-test shapes in float32 (atol = rtol = 2e-4) and with bf16 r/k/v
     (3e-2), the tolerances of ``test_kernel_wkv6.py``; rwkv6-7b's prefill
-    shapes and a 4096-step row set in bf16; and the model-layout wrapper
-    with a sequence that is not a multiple of the chunk (float32)."""
+    shapes and a 4096-step row set in bf16 with the model's decay range;
+    the same range in float32 at R 64 x T 256; one-chunk rows (T = chunk);
+    a single 4096-step row (one row's state chain walking 64 chunks); the
+    plan's largest row split (R 64 x T 128, each chunk's rows over two
+    blocks); and the model-layout wrapper with a sequence that is not a
+    multiple of the chunk (float32).  Outputs and states alike."""
     from repro_torch.kernels.wkv6 import ops
     gen = torch.Generator(device="cuda").manual_seed(5)
     cases = []
+
+    def add(label, kind, R, T, N, chunk, dtype, model_decay=False):
+        a = wkv_inputs(torch, gen, R, T, N, dtype, model_decay)
+        cases.append((label, kind, _wkv_split(torch, R, T, N, chunk),
+                      lambda b: ops.wkv6_rows(*a, chunk=chunk, backend=b)))
+
     for R, T, N, chunk in WKV_REF_SHAPES:
         for dtype, name in ((torch.float32, "float32"),
                             (torch.bfloat16, "bfloat16")):
-            cases.append((f"R{R} T{T} N{N} chunk{chunk}", name,
-                          lambda b, a=wkv_inputs(torch, gen, R, T, N, dtype),
-                          c=chunk: ops.wkv6_rows(*a, chunk=c, backend=b)))
+            add(f"R{R} T{T} N{N} chunk{chunk}", name, R, T, N, chunk, dtype)
     for R, T in WKV_SERVE_SHAPES + (WKV_LONG_SHAPE,):
-        args = wkv_inputs(torch, gen, R, T, 64, torch.bfloat16,
-                          model_decay=True)
-        cases.append((f"rwkv6-7b prefill R{R} T{T} N64 chunk64", "bfloat16",
-                      lambda b, a=args: ops.wkv6_rows(*a, chunk=64,
-                                                      backend=b)))
+        add(f"rwkv6-7b prefill R{R} T{T} N64 chunk64", "bfloat16", R, T, 64,
+            64, torch.bfloat16, model_decay=True)
+    add("rwkv6-7b prefill R64 T256 N64 chunk64, model decay", "float32", 64,
+        256, 64, 64, torch.float32, model_decay=True)
+    add("one-chunk rows R64 T64 N64 chunk64", "float32", 64, 64, 64, 64,
+        torch.float32, model_decay=True)
+    add("one-chunk rows R5 T16 N16 chunk16", "bfloat16", 5, 16, 16, 16,
+        torch.bfloat16)
+    add("one row R1 T4096 N64 chunk64", "bfloat16", 1, 4096, 64, 64,
+        torch.bfloat16, model_decay=True)
+    add("largest row split R64 T128 N64 chunk64", "float32", 64, 128, 64,
+        64, torch.float32, model_decay=True)
+    check(cases[-1][2] == 2, "the plan no longer splits R64 T128's chunks: "
+                             "the largest-split case tests nothing")
     # model layout (B, S, H, N) = (2, 50, 3, 16): the tail padded to 64
     B, S, H, N = 2, 50, 3, 16
     r, k, v, log_w, _, _ = wkv_inputs(torch, gen, B, S, H * N,
@@ -599,10 +645,10 @@ def check_wkv6(torch):
     u = torch.randn((H, N), generator=gen, device="cuda")
     s0 = torch.randn((B, H, N, N), generator=gen, device="cuda") * 0.1
     cases.append(("model layout B2 S50 H3 N16 chunk32 (padded tail)",
-                  "float32", lambda b: ops.wkv6(*lay, u, s0, chunk=32,
-                                                backend=b)))
+                  "float32", 1, lambda b: ops.wkv6(*lay, u, s0, chunk=32,
+                                                   backend=b)))
     rows, failures = [], []
-    for label, kind, run in cases:
+    for label, kind, split, run in cases:
         got, want = run("kernel"), run("plain")
         torch.cuda.synchronize()
         tol = 2e-4 if kind == "float32" else 3e-2
@@ -610,8 +656,8 @@ def check_wkv6(torch):
         ok = all(torch.allclose(g, w, atol=tol, rtol=tol)
                  and bool(torch.isfinite(g).all())
                  for g, w in zip(got, want))
-        rows.append({"case": label, "dtype": kind, "tolerance": tol,
-                     "max_abs_err_out": errs[0],
+        rows.append({"case": label, "dtype": kind, "row_split": split,
+                     "tolerance": tol, "max_abs_err_out": errs[0],
                      "max_abs_err_state": errs[1], "ok": ok})
         if not ok:
             failures.append(rows[-1])
@@ -624,23 +670,38 @@ def check_wkv6(torch):
             "failures": failures[:10], "rows": rows}
 
 
-def time_wkv_case(torch, flush, gen, R, T, N=64, chunk=64):
-    """Median times of the WKV6 kernel and its plain version at one shape
-    (bf16 r/k/v, the model's decay range), beside the bound."""
+def time_wkv_case(torch, flush, gen, gpu, R, T, N=64, chunk=64):
+    """Median times of the WKV6 kernels (one call: the state chain and the
+    chunk outputs) and of their plain version at one shape (bf16 r/k/v,
+    the model's decay range), beside the bound, the plan and the achieved
+    HBM rate of the call's own bytes."""
     from repro_torch.kernels.wkv6 import ops
     args = wkv_inputs(torch, gen, R, T, N, torch.bfloat16, model_decay=True)
     got = ops.wkv6_rows(*args, chunk=chunk, backend="kernel")
     want = ops.wkv6_rows(*args, chunk=chunk, backend="plain")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     row = {"R": R, "T": T, "N": N, "chunk": chunk,
-           "n_split": ops.n_split(torch.device("cuda"), R, N),
            "max_abs_err": max((g - w).abs().max().item()
                               for g, w in zip(got, want))}
+    if hasattr(ops, "wkv6_plan"):   # absent in a checkout before the plan
+        plan = ops.wkv6_plan(sms, R, T, N, chunk)
+        row["plan"] = {
+            "state_blocks": plan.state_grid[0] * plan.state_grid[1],
+            "col_blocks": plan.col_blocks,
+            "chunk_blocks": plan.chunk_grid[0] * plan.chunk_grid[1],
+            "row_split": plan.row_split, "smem_state": plan.smem_state,
+            "smem_chunk": plan.smem_chunk,
+            "workspace_bytes": plan.workspace_bytes}
     row["ms"] = time_ms(torch, lambda: ops.wkv6_rows(
         *args, chunk=chunk, backend="kernel"), flush)
     row["plain_ms"] = time_ms(torch, lambda: ops.wkv6_rows(
         *args, chunk=chunk, backend="plain"), flush, iters=10)
     row["library_ms"] = None
-    row["bound_ms"], row["bound_by"] = wkv_bound(R, T, N, chunk)
+    row["bound_ms"], row["bound_by"] = wkv_bound(
+        R, T, N, chunk, 2, sms, gpu["sm_clock_mhz"])
+    nbytes = (3 * R * T * N * 2 + 8 * R * T * N + 4 * R * N
+              + 8 * R * N * N)
+    row["hbm_tb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e12
     return row
 
 
@@ -742,11 +803,13 @@ def phase_kernel_time(torch, gpu, flush):
           "library": "torch.nn.functional.scaled_dot_product_attention "
                      "(enable_gqa) on K/V gathered dense beforehand",
           "event_floor_ms": floor, "rows": pa_rows})
-    wkv_rows = [time_wkv_case(torch, flush, gen, R, T)
+    wkv_rows = [time_wkv_case(torch, flush, gen, gpu, R, T)
                 for R, T in WKV_SERVE_SHAPES + (WKV_LONG_SHAPE,)]
     emit({"phase": "kernel_time", "gpu": gpu, "kernel": "wkv6",
           "shape": "rwkv6-7b prefill: R = 64 heads x requests rows of T "
-                   "steps, N 64, chunk 64, bf16 r/k/v",
+                   "steps, N 64, chunk 64, bf16 r/k/v, the model's decay "
+                   "range; one call is two kernels (state chain, chunk "
+                   "outputs)",
           "library": "none: no single PyTorch call computes WKV6",
           "rows": wkv_rows})
     return rows + tile_rows + pa_rows + wkv_rows
@@ -1447,13 +1510,14 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
         "chunk": chunk}
 
 
-def wkv6_summary(torch, flush, shape, launches):
+def wkv6_summary(torch, flush, gpu, shape, launches):
     """The kernels line's numbers for WKV6: one layer's call at the rwkv
     serve's most frequent kernel-route prefill shape, timed in this run
     beside its plain version and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    row = time_wkv_case(torch, flush, gen, shape["R"], shape["T"],
+    row = time_wkv_case(torch, flush, gen, gpu, shape["R"], shape["T"],
                         shape["N"], shape["chunk"])
+    plan = row["plan"]
     return {"name": "wkv6", "route": "cuda",
             "source": KERNEL_SOURCES["wkv6"],
             "replaces": "src/repro/kernels/wkv6/kernel.py:85",
@@ -1464,15 +1528,18 @@ def wkv6_summary(torch, flush, shape, launches):
             "shape": f"one layer's prefill call in the rwkv serve: R="
                      f"{shape['R']} rows (64 heads x requests), T="
                      f"{shape['T']}, N {shape['N']}, chunk {shape['chunk']}, "
-                     f"bf16 r/k/v, {row['n_split']} column split(s) per "
-                     f"row; library: none computes WKV6"}
+                     f"bf16 r/k/v; two kernels per call: "
+                     f"{plan['state_blocks']} state-chain blocks "
+                     f"({plan['col_blocks']} per row) and "
+                     f"{plan['chunk_blocks']} chunk blocks (row split "
+                     f"{plan['row_split']}); library: none computes WKV6"}
 
 
 #: device-kernel name fragments of each of the port's CUDA kernels
 KERNEL_SYMBOLS = {"bp_matmul_gemv": ("bp_gemv",),
                   "bp_matmul_tile": ("bp_tile", "bp_wgmma"),
                   "paged_attention": ("paged_attention_kernel",),
-                  "wkv6": ("wkv6_chunked_kernel",)}
+                  "wkv6": ("wkv6_state_kernel", "wkv6_chunk_kernel")}
 
 
 def _profile_serve(torch, engine, requests, n_slots, cache_T, sched,
@@ -1672,6 +1739,29 @@ def paged_layer_summary(torch, flush, paged_shape, launches):
 SWEEP_EXTRA = ((128, QWEN_KN), (128, RWKV_KN[:3]))
 
 
+def wkv_time(torch, gpu, path):
+    """The WKV6 kernels alone at rwkv6-7b's prefill shapes: built from this
+    checkout, held against the plain version and timed as
+    ``phase_kernel_time`` times them; written to ``path``, one line per
+    shape printed."""
+    from repro_torch.kernels.wkv6 import build
+    t0 = time.perf_counter()
+    build.LIBRARY.load()
+    flush = Flusher(torch)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for R, T in WKV_SERVE_SHAPES + (WKV_LONG_SHAPE,):
+        rows.append(time_wkv_case(torch, flush, gen, gpu, R, T))
+        print(json.dumps({k: rows[-1][k] for k in
+                          ("R", "T", "ms", "bound_ms", "max_abs_err")}),
+              flush=True)
+    pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
+    pathlib.Path(path).write_text(json.dumps(
+        {"gpu": gpu, "root": str(ROOT), "build_and_load_s":
+         time.perf_counter() - t0, "event_floor_ms":
+         event_floor_ms(torch, flush), "rows": rows}, indent=1))
+
+
 def tile_sweep(torch, gpu, path):
     """Every tile x K split of the prefill tile kernels at the serves'
     prefill shapes, both modes, each launch held bit-exact against the
@@ -1752,6 +1842,10 @@ def main() -> int:
                     help="instead of the smoke test, time every tile x K "
                          "split of the prefill tile kernels at the serves' "
                          "prefill shapes and write them to this JSON file")
+    ap.add_argument("--wkv-time", default=None, metavar="PATH",
+                    help="instead of the smoke test, time the WKV6 kernels "
+                         "alone at rwkv6-7b's prefill shapes and write "
+                         "them to this JSON file")
     args = ap.parse_args()
     try:
         import torch
@@ -1769,10 +1863,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     smi = nvidia_smi_line()
-    gpu = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi}
-    if args.tile_sweep:
+    gpu = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "sm_clock_mhz": float(nvidia_smi("clocks.max.sm", "nounits"))}
+    if args.tile_sweep or args.wkv_time:
         try:
-            tile_sweep(torch, gpu, args.tile_sweep)
+            if args.tile_sweep:
+                tile_sweep(torch, gpu, args.tile_sweep)
+            else:
+                wkv_time(torch, gpu, args.wkv_time)
         except CheckFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -1806,7 +1904,7 @@ def main() -> int:
         for entry, key in ((bp, "bp_matmul_gemv"), (tile, "bp_matmul_tile")):
             entry["launches_by_path"] = {p: c[key] for p, c in paths.items()}
         pa = paged_layer_summary(torch, flush, paged_shape, paged_launches)
-        wk = wkv6_summary(torch, flush, rwkv_shape, rwkv_launches)
+        wk = wkv6_summary(torch, flush, gpu, rwkv_shape, rwkv_launches)
         summary = [bp, tile, pa, wk]
         for k in summary:
             check(k["launches"] > 0,

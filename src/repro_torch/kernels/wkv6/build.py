@@ -13,7 +13,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.wkv6_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
 

@@ -11,14 +11,20 @@ as the other kernels':
   ``plain``   the plain version on any device (the card's A/B reference).
 
 ``wkv6_rows`` checks device, dtype, shape and contiguity, allocates the
-outputs, launches the kernel on PyTorch's current stream and counts the
-launch in :data:`LAUNCHES`.  Nothing falls back quietly: a failed build or
-launch, or a shape the kernel does not take, raises.
+outputs and the state workspace, launches on PyTorch's current stream and
+counts the call in :data:`LAUNCHES`.  One call is two CUDA kernels,
+``wkv6_state_kernel`` (the state chain, which writes the state in front of
+every chunk to the workspace) and ``wkv6_chunk_kernel`` (every chunk's
+output, launched as the first one's programmatic dependent), planned by
+:func:`wkv6_plan`; the count is one per call.  Nothing falls back quietly:
+a failed build or launch, or a shape the kernel does not take, raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -54,17 +60,90 @@ def _use_kernel(x: torch.Tensor, backend: str) -> bool:
                      f"{BACKENDS}")
 
 
-def n_split(dev: torch.device, R: int, N: int) -> int:
-    """Blocks each row's value columns are split over: a power of two up
-    to 4, as long as the blocks still fit one wave of one block per SM
-    (every split recomputes the chunk's pair matrix, so more blocks than
-    SMs only adds work) and each keeps at least 16 columns."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    ns = 1
-    while (ns < 4 and 2 * ns * R <= sms and N % (2 * ns) == 0
-           and N // (2 * ns) >= 16 and (N // (2 * ns)) % 4 == 0):
-        ns *= 2
-    return ns
+#: blocks of the state chain per row, at most (each takes NP / col_blocks
+#: of the padded value columns, a multiple of 8)
+MAX_COL_BLOCKS = 4
+#: a chunk's output rows are split over two blocks while R x chunks is at
+#: most this many per SM
+SPLIT_CHUNKS_PER_SM = 1.0
+#: shared memory a block may use on sm_90 (227 KB)
+SMEM_MAX = 232448
+
+
+class WkvPlan(NamedTuple):
+    """How one ``wkv6_rows`` call is cut (see ``csrc/wkv6.cu``).
+
+    The state kernel's grid (x, y) = ``state_grid`` = (``col_blocks``,
+    rows): block x of a row carries value columns [x C, (x + 1) C) of its
+    state, C = N padded to 16 / ``col_blocks``, through all
+    ``state_chunks_per_block`` chunks.  The chunk kernel's grid (x, y) =
+    ``chunk_grid`` = (chunks x ``row_split``, rows): block x computes chunk
+    x // ``row_split``, all N value columns, for the 16-step row
+    sub-chunks ``sub_chunks[x % row_split]`` (``chunks_per_block`` 1).
+    Both kernels' blocks have 256 threads.  ``workspace_bytes`` is the
+    float32 state in front of every chunk that the first kernel writes and
+    the second reads."""
+    state_grid: tuple
+    col_blocks: int
+    state_chunks_per_block: int
+    chunk_grid: tuple
+    row_split: int
+    sub_chunks: tuple
+    chunks_per_block: int
+    smem_state: int
+    smem_chunk: int
+    workspace_bytes: int
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def wkv6_plan(sms: int, R: int, T: int, N: int, chunk: int,
+              esize: int = 2) -> WkvPlan:
+    """The kernels' plan for R rows of T steps, head size N, r/k/v of
+    ``esize`` bytes, on a card of ``sms`` SMs.
+
+    The state chain is serial over a row's chunks, so its blocks are what
+    the long prompt waits on: each row's state columns are split over the
+    most blocks (1, 2 or 4; a multiple of 8 columns each, none empty)
+    that keep the chain within one block per SM.  A chunk's output rows
+    are split over two blocks (sub-chunks {0, 3} and {1, 2}: equal pair and
+    product work) only at chunk 64 and only where the chunks are few
+    (R x chunks <= :data:`SPLIT_CHUNKS_PER_SM` x sms): the halves share no
+    work, but each reloads the chunk.  Shared-memory bytes mirror
+    ``wkv6.cu``'s ``state_smem_bytes`` / ``chunk_smem_bytes`` (its launcher
+    refuses a plan that disagrees)."""
+    if chunk not in CHUNKS:
+        raise ValueError(f"no wkv6 plan for chunk {chunk}: the kernel "
+                         f"takes {CHUNKS}")
+    if (R < 1 or T < 1 or N < 1 or N > MAX_N or N % 4 or T % chunk
+            or esize not in (2, 4)):
+        raise ValueError(f"no wkv6 plan for R={R}, T={T}, N={N}, chunk "
+                         f"{chunk}, esize {esize}")
+    L, NP = chunk, _pad16(N)
+    nc = T // L
+    cb = MAX_COL_BLOCKS
+    while cb > 1 and (NP % (8 * cb) or N <= NP - NP // cb or R * cb > sms):
+        cb //= 2
+    split = 2 if L == 64 and R * nc <= SPLIT_CHUNKS_PER_SM * sms else 1
+    ns = L // 16
+    if split == 1:
+        subs = (tuple(range(ns)),)
+    else:
+        subs = tuple((p, ns - 1 - p) for p in range(split))
+    sa = NP + 4
+    smem_state = (3 * L * (N * (esize + 4) + (NP // cb + 8) * esize)
+                  + 8 * (L * (NP + 8) + NP))
+    smem_chunk = (4 * (2 * L * sa + 2 * max(L, NP) * sa + NP + L)
+                  + L * (N + 8) * esize
+                  + max(2 * L * N * esize, 4 * L * (L + 4)))
+    return WkvPlan(state_grid=(cb, R), col_blocks=cb,
+                   state_chunks_per_block=nc, chunk_grid=(nc * split, R),
+                   row_split=split, sub_chunks=subs, chunks_per_block=1,
+                   smem_state=smem_state, smem_chunk=smem_chunk,
+                   workspace_bytes=4 * R * nc * N * N)
 
 
 def wkv6_rows(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -114,15 +193,19 @@ def wkv6_rows(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_out = torch.empty((R, N, N), dtype=torch.float32, device=dev)
     if R == 0:
         return out, s_out
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = wkv6_plan(sms, R, T, N, chunk, r.element_size())
+    ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                     device=dev)
     from repro_torch.kernels.wkv6.build import library
     lib = library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wkv6_launch(
             *(ctypes.c_void_p(t.data_ptr())
-              for t in (r, k, v, log_w, u, state, out, s_out)),
-            R, T, N, chunk, n_split(dev, R, N), code,
-            ctypes.c_void_p(stream))
+              for t in (r, k, v, log_w, u, state, out, s_out, ws)),
+            R, T, N, chunk, plan.row_split, plan.col_blocks, code,
+            plan.smem_state, plan.smem_chunk, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {rc}")
     LAUNCHES["wkv6"] += 1

@@ -4,8 +4,10 @@ The kernels run only on the card, but how their work is cut is decided in
 Python from shapes alone: the paged-attention kernel's split of each
 sequence's positions over blocks (``paged_attention.ops.split_plan``), the
 BitParticle decode GEMV's cut of K and of the columns
-(``bitparticle_matmul.ops.gemv_plan``) and its prefill tile kernel's tiles,
-K split and ring (``bitparticle_matmul.ops.tile_plan``).  These tests hold
+(``bitparticle_matmul.ops.gemv_plan``), its prefill tile kernel's tiles,
+K split and ring (``bitparticle_matmul.ops.tile_plan``), and the chunked
+WKV6 kernels' blocks, row split, shared memory and state workspace
+(``wkv6.ops.wkv6_plan``).  These tests hold
 each plan to what the kernel assumes: every position (page), output or K
 byte is covered exactly once, slices start aligned, no grid is empty, and
 the shared memory the plan implies fits.  The last test checks, in numpy,
@@ -21,6 +23,7 @@ from repro_torch.core.bp_matmul import signed_low_particles
 
 from repro_torch.kernels.bitparticle_matmul import ops as bp_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.wkv6 import ops as wkv_ops
 
 # (SMs, walks = B x KH x query groups, table rows = pages x block size, block
 # size): the H100's 132 SMs at the serves' and the sweep's shapes, the
@@ -227,6 +230,103 @@ def test_tile_plan_routes_exact_and_approx():
     for m, k, n in TILE_SHAPES:
         bm, bn = bp_ops.tile_plan(132, m, n, k, True)[:2]
         assert not bp_ops.tile_uses_wgmma(bm, bn, True)
+
+
+# (R, T, N, chunk): the reference's kernel-test shapes, rwkv6-7b's serve
+# prefills (64 heads x requests rows, N 64, chunk 64: one request of 64,
+# 128, 256 and 4096 tokens, four of 256, one row alone) and the other chunk
+# lengths at the model's head size
+WKV_SHAPES = [(2, 64, 16, 16), (1, 32, 32, 32), (4, 128, 64, 64),
+              (3, 96, 8, 32), (64, 64, 64, 64), (64, 128, 64, 64),
+              (64, 256, 64, 64), (256, 256, 64, 64), (64, 4096, 64, 64),
+              (1, 4096, 64, 64), (128, 128, 64, 64), (5, 48, 64, 16),
+              (7, 64, 4, 32), (2, 16, 60, 16)]
+
+
+@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("sms", [132, 16])
+@pytest.mark.parametrize("R,T,N,chunk", WKV_SHAPES)
+def test_wkv6_plan_covers_every_output_once_within_shared_memory(
+        R, T, N, chunk, sms, esize):
+    plan = wkv_ops.wkv6_plan(sms, R, T, N, chunk, esize)
+    nc = T // chunk
+    NP = -(-N // 16) * 16
+    # the state kernel: grid (column blocks, rows), every block walking all
+    # of its row's chunks; each (row, state column) carried by exactly one
+    # block, none of them empty, within one block per SM where it splits
+    cb = plan.col_blocks
+    assert plan.state_grid == (cb, R) and plan.state_chunks_per_block == nc
+    cols = NP // cb
+    assert cb in (1, 2, 4) and cols * cb == NP and cols % 8 == 0
+    owners = np.zeros((R, NP), np.int32)
+    for x in range(cb):
+        assert x * cols < N
+        owners[:, x * cols:(x + 1) * cols] += 1
+    assert (owners == 1).all()
+    if cb > 1:
+        assert R * cb <= sms
+    # the chunk kernel: grid (chunks x split, rows), every block all N
+    # value columns; its parts' 16-step row sub-chunks tile the chunk once
+    x, y = plan.chunk_grid
+    assert (x, y) == (nc * plan.row_split, R)
+    assert plan.chunks_per_block == 1
+    assert len(plan.sub_chunks) == plan.row_split
+    covered = np.zeros((R, T, N), np.int32)
+    for bx in range(x):
+        ch, part = divmod(bx, plan.row_split)
+        for ti in plan.sub_chunks[part]:
+            lo = ch * chunk + 16 * ti
+            covered[:, lo:lo + 16, :] += 1
+    assert (covered == 1).all()
+    # a split's halves do equal work: as many off-diagonal 16 x 16 pair
+    # blocks (sum of ti) and A v steps (sum of ti + 1) each
+    if plan.row_split == 2:
+        assert chunk == 64 and R * nc <= sms
+        assert {sum(p) for p in plan.sub_chunks} == {3}
+    else:
+        assert plan.sub_chunks == (tuple(range(chunk // 16)),)
+    # both kernels' shared memory fits a block's 227 KB; at the serves'
+    # shape (bf16, N 64, chunk 64) two chunk blocks share an SM, and where
+    # the state chain is split over column blocks one chunk block fits
+    # beside each of its blocks (the chunk kernel starts while it runs)
+    assert 0 < plan.smem_state <= wkv_ops.SMEM_MAX
+    assert 0 < plan.smem_chunk <= wkv_ops.SMEM_MAX
+    if esize == 2 and N == chunk == 64:
+        assert 2 * (plan.smem_chunk + 1024) <= 233472
+        if cb > 1:
+            assert plan.smem_state + plan.smem_chunk + 2048 <= 233472
+    # the workspace is the float32 state in front of every chunk
+    assert plan.workspace_bytes == R * nc * N * N * 4
+
+
+def test_wkv6_plan_splits_only_where_chunks_leave_sms_idle():
+    # the rwkv serve's most frequent call: 128 chunks on 132 SMs, split
+    assert wkv_ops.wkv6_plan(132, 64, 128, 64, 64).row_split == 2
+    # 256 and more chunks: one block per chunk
+    assert wkv_ops.wkv6_plan(132, 64, 256, 64, 64).row_split == 1
+    assert wkv_ops.wkv6_plan(132, 256, 256, 64, 64).row_split == 1
+    # shorter chunks never split
+    assert wkv_ops.wkv6_plan(132, 1, 32, 32, 32).row_split == 1
+
+
+def test_wkv6_plan_splits_the_state_chain_over_idle_sms():
+    # one 4096-step row: its chain over four blocks of 16 columns; the
+    # serve's 64 rows over two; 256 rows fill the card unsplit
+    assert wkv_ops.wkv6_plan(132, 1, 4096, 64, 64).col_blocks == 4
+    assert wkv_ops.wkv6_plan(132, 64, 4096, 64, 64).col_blocks == 2
+    assert wkv_ops.wkv6_plan(132, 256, 256, 64, 64).col_blocks == 1
+    # no block without a column: N 8 pads to 16, whose second half is empty
+    assert wkv_ops.wkv6_plan(132, 1, 64, 8, 64).col_blocks == 1
+
+
+@pytest.mark.parametrize("args", [(132, 0, 64, 64, 64), (132, 4, 0, 64, 64),
+                                  (132, 4, 64, 0, 64), (132, 4, 64, 68, 64),
+                                  (132, 4, 64, 10, 64), (132, 4, 96, 64, 64),
+                                  (132, 4, 64, 64, 48), (132, 4, 64, 64, 128),
+                                  (132, 4, 64, 64, 8)])
+def test_wkv6_plan_refuses_empty_shapes_and_unsupported_chunks(args):
+    with pytest.raises(ValueError, match="no wkv6 plan"):
+        wkv_ops.wkv6_plan(*args)
 
 
 def _words(b):

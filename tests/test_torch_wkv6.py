@@ -158,3 +158,89 @@ def test_kernel_backend_refuses_cpu_tensors_and_unknown_backends():
     # CPU tensors under "auto" run the plain version, and count nothing
     ops.wkv6_rows(*targs, chunk=32)
     assert ops.LAUNCHES["wkv6"] == 0
+
+
+def _kernel_algebra(r, k, v, log_w, u, s0, chunk):
+    """The CUDA kernels' decomposition (``csrc/wkv6.cu``) written out in
+    float32 torch: the plain version's prefix sums (cs in step order, lc =
+    cs - w, lcs = lc + w); the state chain S_{c+1} = e^{lc_end} S_c + dS_c
+    with dS_c = (k e^{lc_end - lcs})^T v; the pair matrix A cut into
+    16-step sub-chunks, the diagonal blocks with one exponential per pair
+    j < i, the off-diagonal ones factored at the row sub-chunk's first step
+    i0 as (r e^{lc - lc_i0}) (k e^{lc_i0 - lcs})^T; and out = (r e^{lc})
+    S_c + A v + (r . u k) v.  Every exponent is clamped at 0, as the
+    kernels clamp it: its exact value is <= 0, and the float32 prefix sums
+    leave those that are exactly 0 (lc_i - lcs_{i-1}) within a few units
+    in the last place of |lc| either side.  Returns (out, state, the
+    largest exponent formed before the clamp, in units of float32
+    rounding of its chunk's largest |lc|)."""
+    R, T, N = r.shape
+    L = chunk
+    tri = torch.tril(torch.ones((16, 16), dtype=torch.bool), diagonal=-1)
+    s, outs, top = s0.clone(), [], -float("inf")
+    ulp = float(np.finfo(np.float32).eps)
+
+    def ex(x):
+        nonlocal top
+        top = max(top, float(x.max()) / (ulp * scale))
+        return torch.exp(x.clamp(max=0.0))
+
+    for c in range(T // L):
+        rc, kc, vc, wc = (t[:, c * L:(c + 1) * L].float()
+                          for t in (r, k, v, log_w))
+        lc = torch.cumsum(wc, dim=1) - wc
+        lcs = lc + wc
+        scale = 1.0 + float(lcs.abs().max())
+        lce = lcs[:, -1:]                                  # (R, 1, N)
+        # the state kernel: S_c goes to the workspace, then the chain
+        s_c = s
+        kd = kc * ex(lce - lcs)
+        s = ex(lce[:, 0])[..., None] * s + kd.transpose(1, 2) @ vc
+        # the chunk kernel: A by 16-step sub-chunks
+        a_mat = torch.zeros((R, L, L))
+        for ti in range(L // 16):
+            i0 = 16 * ti
+            rows = slice(i0, i0 + 16)
+            pair = ex(torch.where(
+                tri[None, :, :, None],
+                lc[:, rows, None, :] - lcs[:, None, rows, :], -1.0))
+            a_mat[:, rows, rows] = torch.where(
+                tri, (rc[:, rows, None, :] * kc[:, None, rows, :]
+                      * pair).sum(-1), 0.0)
+            for tj in range(ti):
+                cols = slice(16 * tj, 16 * tj + 16)
+                r_e = rc[:, rows] * ex(lc[:, rows] - lc[:, i0:i0 + 1])
+                k_i = kc[:, cols] * ex(lc[:, i0:i0 + 1] - lcs[:, cols])
+                a_mat[:, rows, cols] = r_e @ k_i.transpose(1, 2)
+        bonus = (rc * u[:, None, :] * kc).sum(-1, keepdim=True)
+        outs.append((rc * ex(lc)) @ s_c + a_mat @ vc + bonus * vc)
+    return torch.cat(outs, dim=1), s, top
+
+
+def _model_decay_inputs(seed, R, T, N):
+    """The reference tests' r/k/v/u/state, with log_w over the model's
+    whole decay range -exp([-8, 2])."""
+    r, k, v, _, u, s = _inputs(seed, R, T, N)
+    rng = np.random.default_rng(seed + 1)
+    log_w = -np.exp(rng.uniform(-8.0, 2.0, (R, T, N))).astype(np.float32)
+    return r, k, v, log_w, u, s
+
+
+@pytest.mark.parametrize("R,T,N,chunk,decay", [
+    *[(R, T, N, chunk, "reference") for R, T, N, chunk in SHAPES],
+    (4, 256, 64, 64, "model")])
+def test_kernel_decomposition_matches_pallas_interpret(R, T, N, chunk,
+                                                        decay):
+    """The decomposition the CUDA kernels compute, against the Pallas
+    kernel in interpret mode, within the float32 gate (2e-4).  Every
+    exponent it forms is <= 0 but for float32 rounding of the prefix sums
+    (at most 4 units in the last place of the chunk's largest |lc|; the
+    kernels clamp those at 0), so no factor can overflow."""
+    make = _inputs if decay == "reference" else _model_decay_inputs
+    arrays = make(R * 7 + T + N, R, T, N)
+    out, s, top = _kernel_algebra(*map(torch.from_numpy, arrays), chunk)
+    assert top <= 4.0
+    want_out, want_s = wkv6_kernel(*map(jnp.asarray, arrays), chunk=chunk,
+                                   interpret=True)
+    _close(out, want_out, 2e-4)
+    _close(s, want_s, 2e-4)
