@@ -19,7 +19,8 @@ are missing.  Phases, one JSON line each:
                fused float32 epilogue, exact and approximate modes) on its
                decode GEMV at qwen2-1.5b's and rwkv6-7b's projections and
                lm_head (M 1, 4, 8) and on its prefill tile kernel at both
-               models' projections (M 9 to 2048), the reference's ragged
+               models' projections (M 9 to 2048, the verify steps' 20 and
+               256 among them), the reference's ragged
                shapes and ragged prefill ones (K % 16 != 0, N 17 and 260),
                an A one byte off alignment (the byte loads), inputs with
                -128, and plans that split K (the GEMV's workspace must be
@@ -44,7 +45,10 @@ are missing.  Phases, one JSON line each:
                BitParticle matmul's GEMV at M 4 and 8 on both models'
                decode shapes, its tile kernel at the serves' prefill rows
                (qwen2-1.5b M 64-2048, rwkv6-7b M 64, 100, 256) beside
-               ``torch._int_mm`` in both weight layouts; WKV6 at rwkv6-7b's
+               ``torch._int_mm`` in both weight layouts, and one qwen2-1.5b
+               layer's seven projections at the verify steps' rows (M 20
+               and 256) beside the same chain of ``torch._int_mm`` calls
+               in both weight layouts; WKV6 at rwkv6-7b's
                prefill shapes with its plan and achieved HBM rate; and the
                time the same harness gives the smallest kernel
                (``event_floor_ms``);
@@ -61,6 +65,31 @@ are missing.  Phases, one JSON line each:
                per decode step and the matmul 7 per layer per forward;
                tokens must equal the plain-version serve and the slab serve
                except for flips at argmax near-ties, each reported;
+  serve_spec   speculative decoding on the ``serve`` workload (slab, int8
+               KV) with ``draft="model"``, K = 4, the draft model being the
+               target's own config and weights (a self-draft), then a
+               shorter ``draft="prompt_lookup"`` serve of four prompts that
+               repeat a 16-token phrase to 64-128 tokens.  Every verify
+               step runs each projection once at 4 x 5 rows (K1's tiles),
+               every proposal K+1 draft decode steps at 4 rows (K1's
+               GEMV), every admission a draft prefill (the tiles): the
+               counts must match the step stream and the drafter's spans
+               exactly, and paged attention never runs.  Tokens must equal
+               the ``serve`` phase's, a plain-version speculative serve's
+               and (prompt lookup) a non-speculative serve's except for
+               near-tie flips, each reported; the self-draft must take
+               fewer steps than ``serve`` and commit more than one token
+               per step.  Reports acceptance, steps, committed tokens per
+               step, decode tokens/s and TTFT beside ``serve``'s;
+  serve_chunked chunked prefill (``prefill_chunk=64``, no drafter) on the
+               ``serve_paged`` workload and pool.  Chunk steps run each
+               projection at 4 x 64 rows (the tiles) and attention as the
+               dense gather; steps without a chunk are classic paged
+               decodes, so paged attention must launch exactly once per
+               layer per such step.  Tokens must equal ``serve_paged``'s
+               one-shot tokens and a plain-version chunked serve's except
+               for near-tie flips, each reported; reports chunk tokens,
+               preemptions and TTFT per request beside ``serve_paged``'s;
   serve_rwkv   the third main path, after the qwen2 weights are freed:
                full-width, full-depth rwkv6-7b (random weights from a seed)
                in bp_exact on the slab store, greedy; prompts of 64-256
@@ -133,8 +162,13 @@ RAGGED_MKN = ((8, 128, 128), (16, 256, 384), (256, 256, 256), (5, 33, 17),
               (1, 128, 1), (300, 520, 260), (17, 520, 17), (9, 4096, 260),
               (2048, 520, 17), (100, 1000, 260), (512, 1000, 8960))
 # prefill row counts held against the plain version on both models'
-# projections: a 9-row group up to a 2048-row paged prefill
-PREFILL_CHECK_M = (9, 16, 17, 64, 100, 256, 512, 2048)
+# projections: a 9-row group up to a 2048-row paged prefill, with the
+# verify steps' 20 rows (4 slots x 5 positions) and 256 (4 x a 64-token
+# chunk)
+PREFILL_CHECK_M = (9, 16, 17, 20, 64, 100, 256, 512, 2048)
+# rows of the verify steps' projections: 4 slots x (K + 1 = 5) positions
+# under speculation, 4 slots x a 64-token chunk under chunked prefill
+VERIFY_M = (20, 256)
 MODES = (("exact", False), ("approx", True))
 BF16_OPS_PER_S = 989e12
 # the tensor cores' dense TF32 rate
@@ -795,6 +829,17 @@ def phase_kernel_time(torch, gpu, flush):
           "library": "torch._int_mm (exact mode), both weight layouts; "
                      "library_ms is the faster",
           "event_floor_ms": floor, "rows": tile_rows})
+    verify_rows = [verify_layer_row(torch, flush, gen, m)
+                   for m in VERIFY_M]
+    ops.reset_launches()
+    emit({"phase": "kernel_time", "gpu": gpu, "kernel": "bp_matmul",
+          "route": "verify tiles (M > 8)",
+          "shape": "one qwen2-1.5b layer's 7 projections, exact mode, at "
+                   "the verify steps' rows: M 20 (4 slots x K+1 = 5, "
+                   "speculation) and 256 (4 slots x a 64-token chunk)",
+          "library": "the same chain of torch._int_mm calls in each weight "
+                     "layout; library_ms is the faster",
+          "event_floor_ms": floor, "rows": verify_rows})
     pa_rows = [time_paged_case(torch, flush, gen, B, [L - 1] * B)
                for B in (4, 32) for L in (128, 512, 2048, 8192)]
     emit({"phase": "kernel_time", "gpu": gpu, "kernel": "paged_attention",
@@ -812,7 +857,19 @@ def phase_kernel_time(torch, gpu, flush):
                    "outputs)",
           "library": "none: no single PyTorch call computes WKV6",
           "rows": wkv_rows})
-    return rows + tile_rows + pa_rows + wkv_rows
+    return rows + tile_rows + verify_rows + pa_rows + wkv_rows, verify_rows
+
+
+def verify_layer_row(torch, flush, gen, m):
+    """One qwen2-1.5b layer's seven projections at M = ``m`` (a verify
+    step's rows), timed as a chain beside the plain version, the bound and
+    the same chain of ``torch._int_mm`` calls in both weight layouts."""
+    ms, plain_ms, bound_ms, bound_by, err, lib = time_chain(
+        torch, flush, gen, m, QWEN_LAYER_KN, library=True)
+    return {"m": m, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err,
+            "library_ms_by_layout": lib,
+            "library_ms": min(lib.values()) if lib else None}
 
 
 def _sdpa_on_gathered(torch, q, kp, vp, tables, lens):
@@ -860,6 +917,31 @@ def time_paged_case(torch, flush, gen, B, lengths, pps=None):
     return row
 
 
+def reset_counts():
+    """Zero every kernel's launch counter (and paged attention's count of
+    CUDA calls routed to its plain gather)."""
+    from repro_torch.kernels.bitparticle_matmul import ops as bp_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    for ops in (bp_ops, pa_ops, wkv_ops):
+        ops.reset_launches()
+
+
+def launch_counts():
+    """Every kernel's launches since :func:`reset_counts`: K1 in all and
+    per route, K2, K2's calls routed to the plain gather (int8 KV pages),
+    and K3."""
+    from repro_torch.kernels.bitparticle_matmul import ops as bp_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    return {"bp_matmul": bp_ops.LAUNCHES["bp_matmul"],
+            "bp_matmul_gemv": bp_ops.LAUNCHES["gemv"],
+            "bp_matmul_tile": bp_ops.LAUNCHES["tile"],
+            "paged_attention": pa_ops.LAUNCHES["paged_attention"],
+            "routed_plain_int8_kv": pa_ops.ROUTED_PLAIN["int8_kv"],
+            "wkv6": wkv_ops.LAUNCHES["wkv6"]}
+
+
 def _requests(serving, rng, vocab: int, n: int):
     reqs = []
     for i in range(n):
@@ -871,13 +953,15 @@ def _requests(serving, rng, vocab: int, n: int):
     return reqs
 
 
-def matmul_routes(stream, per_forward, head=0):
+def matmul_routes(stream, per_forward, head=0, verify_s=0):
     """The launches each of K1's routes should take in a serve, from its
     step stream: a prefill's ``per_forward`` projections take the tile
     kernel where its rows (group x padded length) exceed the GEMV's 8, a
-    decode step's (one row per slot) the GEMV; an untied lm_head (``head``
-    calls per forward) runs on the last positions only, so the GEMV.  Also
-    the most frequent prefill row count (the kernels line's shape)."""
+    decode step's (one row per slot) the GEMV, a verify step's (``verify_s``
+    rows per slot) the tiles where they exceed 8; an untied lm_head
+    (``head`` calls per forward) runs on the last positions only, so the
+    GEMV.  Also the most frequent prefill row count (the kernels line's
+    shape)."""
     from repro_torch.kernels.bitparticle_matmul.ops import GEMV_MAX_M
     want, rows = {"gemv": 0, "tile": 0}, []
     for r in stream:
@@ -888,8 +972,20 @@ def matmul_routes(stream, per_forward, head=0):
             want["gemv"] += head
         elif r["kind"] == "decode":
             want["gemv"] += per_forward + head
+        elif r["kind"] == "verify":
+            m = r["n_slots"] * verify_s
+            want["tile" if m > GEMV_MAX_M else "gemv"] += per_forward
     common = max(set(rows), key=lambda m: (rows.count(m), m)) if rows else 0
     return want, common
+
+
+def step_wall_rate(stream):
+    """Tokens committed by decode and verify steps over the steps' whole
+    host walls (drafting, block preparation and commits included), where
+    ``decode_tokens_per_s`` divides by the device dispatch only."""
+    steps = [r for r in stream if r["kind"] in ("decode", "verify")]
+    wall = sum(r["wall_s"] for r in steps)
+    return sum(r["committed_tokens"] for r in steps) / wall if wall else None
 
 
 def build_model(torch):
@@ -927,24 +1023,17 @@ def phase_serve(torch, gpu, model, n_requests=8, n_slots=4, lead_window=4):
     rng = np.random.default_rng(0)
     prompts = _requests(serving, rng, cfg.vocab_size, n_requests)
 
-    def fresh():
-        return [serving.Request(prompt=r.prompt.copy(),
-                                max_new_tokens=r.max_new_tokens,
-                                arrival_time=r.arrival_time,
-                                request_id=i)
-                for i, r in enumerate(prompts)]
-
     cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
     # warm-up serve (allocator, cuBLAS handles): not measured
-    engine.serve(fresh()[:2], n_slots=n_slots, cache_T=cache_T,
-                 sched_cfg=sched)
+    engine.serve(_copies(serving, prompts[:2]), n_slots=n_slots,
+                 cache_T=cache_T, sched_cfg=sched)
     torch.cuda.synchronize()
 
     # -- the measured main-path run: counts zeroed just before, read after
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    loop = engine.make_loop(fresh(), n_slots=n_slots, cache_T=cache_T,
-                            sched_cfg=sched)
+    loop = engine.make_loop(_copies(serving, prompts), n_slots=n_slots,
+                            cache_T=cache_T, sched_cfg=sched)
     report = loop.run()
     torch.cuda.synchronize()
     launches = {"bp_matmul": ops.LAUNCHES["bp_matmul"],
@@ -964,8 +1053,8 @@ def phase_serve(torch, gpu, model, n_requests=8, n_slots=4, lead_window=4):
     ops.reset_launches()
     plain = serving.ServingEngine(cfg.replace(matmul_backend="plain"),
                                   params, scfg, device="cuda")
-    rep_plain = plain.serve(fresh(), n_slots=n_slots, cache_T=cache_T,
-                            sched_cfg=sched)
+    rep_plain = plain.serve(_copies(serving, prompts), n_slots=n_slots,
+                            cache_T=cache_T, sched_cfg=sched)
     plain_launches = ops.LAUNCHES["bp_matmul"]
     toks_plain = {r.request_id: r.tokens.tolist() for r in rep_plain.results}
 
@@ -1014,6 +1103,7 @@ def phase_serve(torch, gpu, model, n_requests=8, n_slots=4, lead_window=4):
         "generate_equal_serve": not flips,
         "generate_flips": flips,
         "decode_tokens_per_s": decode_tok_s,
+        "step_wall_tokens_per_s": step_wall_rate(loop.stream),
         "decode_step_ms_p50": p["p50"] if p else None,
         "decode_step_ms_p90": p["p90"] if p else None,
         "prefill_s": report.prefill_s, "decode_s": report.decode_s,
@@ -1036,7 +1126,7 @@ def phase_serve(torch, gpu, model, n_requests=8, n_slots=4, lead_window=4):
     bad = [f for f in flips if not f["near_tie"]]
     check(not bad, f"generate() differs from serve() beyond a near-tie: "
                    f"{bad}")
-    return result, {**launches, "prefill_rows": prefill_m}
+    return result, {**launches, "prefill_rows": prefill_m}, toks
 
 
 def _paged_requests(serving, rng, vocab: int, n: int, system_len=256):
@@ -1065,8 +1155,6 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
     import numpy as np
 
     from repro_torch import serving
-    from repro_torch.kernels.bitparticle_matmul import ops as bp_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
 
     cfg = model["cfg"].replace(kv_cache_int8=False)
     params = model["params"]
@@ -1079,45 +1167,29 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
                                            block_size=block_size),
             device="cuda")
 
-    def reset():
-        bp_ops.reset_launches()
-        pa_ops.reset_launches()
-
-    def counts():
-        return {"bp_matmul": bp_ops.LAUNCHES["bp_matmul"],
-                "bp_matmul_gemv": bp_ops.LAUNCHES["gemv"],
-                "bp_matmul_tile": bp_ops.LAUNCHES["tile"],
-                "paged_attention": pa_ops.LAUNCHES["paged_attention"],
-                "routed_plain_int8_kv": pa_ops.ROUTED_PLAIN["int8_kv"]}
-
     engine = engine_for(cfg)
     sched = serving.SchedulerConfig(lead_window=lead_window)
     prompts = _paged_requests(serving, np.random.default_rng(1),
                               cfg.vocab_size, n_requests)
 
-    def fresh():
-        return [serving.Request(prompt=r.prompt.copy(),
-                                max_new_tokens=r.max_new_tokens,
-                                arrival_time=r.arrival_time, request_id=i)
-                for i, r in enumerate(prompts)]
-
     cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
     kw = dict(n_slots=n_slots, cache_T=cache_T, sched_cfg=sched)
     # warm-up serve (allocator): not measured
-    engine.serve(fresh()[:2], num_blocks=num_blocks, **kw)
+    engine.serve(_copies(serving, prompts[:2]), num_blocks=num_blocks, **kw)
     torch.cuda.synchronize()
 
     # -- the measured main-path run: counts zeroed just before, read after
     torch.cuda.reset_peak_memory_stats()
-    reset()
-    loop = engine.make_loop(fresh(), num_blocks=num_blocks, **kw)
+    reset_counts()
+    loop = engine.make_loop(_copies(serving, prompts), num_blocks=num_blocks,
+                            **kw)
     # per-slot positions at every decode step (the kernels line's shape)
     step_lengths = []
     loop.on_step_end = lambda lp: step_lengths.append(
         lp.cm.cache_len_vector().tolist())
     report = loop.run()
     torch.cuda.synchronize()
-    launches = counts()
+    launches = launch_counts()
     peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     n_prefill = sum(1 for r in loop.stream if r["kind"] == "prefill")
     step_ms = [1e3 * r["wall_s"] for r in loop.stream
@@ -1131,13 +1203,14 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
 
     # -- the same serve through the plain versions of both kernels, and the
     # slab store with the same bf16 KV cache
-    reset()
+    reset_counts()
     rep_plain = engine_for(cfg.replace(matmul_backend="plain")).serve(
-        fresh(), num_blocks=num_blocks, **kw)
-    plain_launches = counts()
-    reset()
-    rep_slab = engine_for(cfg, backend="slab").serve(fresh(), **kw)
-    reset()
+        _copies(serving, prompts), num_blocks=num_blocks, **kw)
+    plain_launches = launch_counts()
+    reset_counts()
+    rep_slab = engine_for(cfg, backend="slab").serve(
+        _copies(serving, prompts), **kw)
+    reset_counts()
     flips = {}
     for name, rep in (("plain", rep_plain), ("slab", rep_slab)):
         other = {r.request_id: r.tokens.tolist() for r in rep.results}
@@ -1151,7 +1224,7 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
                                         arrival_time=r.arrival_time)
                         for r in prompts[:2]], n_slots, cache_T, sched,
         num_blocks=num_blocks)
-    reset()
+    reset_counts()
 
     p = serving.percentiles(step_ms, qs=(50, 90))
     result = {
@@ -1176,9 +1249,11 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
         "tokens_equal_slab": not flips["slab"],
         "slab_flips": flips["slab"],
         "decode_tokens_per_s": report.decode_tokens_per_s,
+        "step_wall_tokens_per_s": step_wall_rate(loop.stream),
         "decode_step_ms_p50": p["p50"] if p else None,
         "decode_step_ms_p90": p["p90"] if p else None,
         "prefill_s": report.prefill_s, "decode_s": report.decode_s,
+        "ttft_wall_s_by_request": [r.ttft_wall_s for r in report.results],
         "peak_mem_gb": peak_mem_gb,
         "first_tokens": toks[0][:8],
         "profile": profile,
@@ -1209,7 +1284,477 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
     full = [ls for ls in step_lengths if min(ls) > 0] or step_lengths
     shape = sorted(full, key=sum)[len(full) // 2]
     return result, launches, {"lengths": shape,
-                              "pages_per_seq": loop.cm.blocks_per_seq}
+                              "pages_per_seq": loop.cm.blocks_per_seq}, toks
+
+
+def span_recorder(serving):
+    """A serving telemetry handle that records every span's name and
+    arguments and otherwise does what the disabled handle does: the
+    drafter's spans (``draft_prefill``, ``draft_propose``) say which
+    forwards the draft model ran."""
+
+    class SpanRecorder(serving.Telemetry):
+        def __init__(self):
+            super().__init__()
+            self.spans = []
+
+        def span(self, name, **args):
+            self.spans.append((name, args))
+            return super().span(name, **args)
+
+    return SpanRecorder()
+
+
+def draft_routes(spans, per_forward, k):
+    """K1's launches on each route from the draft model's forwards: a
+    ``draft_prefill`` runs its right-padded prompt (``pad_to`` rows) once,
+    a ``draft_propose`` runs K+1 decode steps of one row per slot (the
+    GEMV while the slots are at most 8)."""
+    from repro_torch.kernels.bitparticle_matmul.ops import GEMV_MAX_M
+    want = {"gemv": 0, "tile": 0}
+    counts = {"draft_prefill": 0, "draft_propose": 0}
+    for name, args in spans:
+        if name == "draft_prefill":
+            counts[name] += 1
+            want["tile" if args["pad_to"] > GEMV_MAX_M
+                 else "gemv"] += per_forward
+        elif name == "draft_propose":
+            counts[name] += 1
+            want["gemv"] += (k + 1) * per_forward
+    return want, counts
+
+
+def _lookup_requests(serving, rng, vocab: int, n: int, phrase_len=16):
+    """``n`` extractive / code-edit requests: a ``phrase_len``-token phrase
+    repeated to 64-128 tokens, 16-32 new tokens each, all at once."""
+    import numpy as np
+    reqs = []
+    for i in range(n):
+        phrase = rng.integers(2, vocab, size=phrase_len)
+        plen = int(rng.integers(64, 129))
+        reqs.append(serving.Request(
+            prompt=np.resize(phrase, plen).astype("int32"),
+            max_new_tokens=int(rng.integers(16, 33)), request_id=i))
+    return reqs
+
+
+def _copies(serving, reqs, max_new_tokens=None):
+    """Fresh requests with the prompts, budgets (or ``max_new_tokens``) and
+    arrivals of ``reqs``, numbered in order."""
+    return [serving.Request(prompt=r.prompt.copy(),
+                            max_new_tokens=(max_new_tokens or
+                                            r.max_new_tokens),
+                            arrival_time=r.arrival_time, request_id=i)
+            for i, r in enumerate(reqs)]
+
+
+def _stream_flips(torch, np, engine, prompts, got, want, cache_T, names,
+                  tie=0.0):
+    """Every request whose two streams part, as ``_flip`` reports it."""
+    return [_flip(torch, np, engine, prompts[i], got[i], want[i], cache_T, i,
+                  names=names, tie=tie)
+            for i in got if got[i] != want[i]]
+
+
+def _spans(marks, t0):
+    """Seconds between consecutive ``marks`` (name -> perf_counter), from
+    ``t0``: where a phase's wall went."""
+    out, last = {}, t0
+    for name, t in marks.items():
+        out[name] = t - last
+        last = t
+    return out
+
+
+def phase_serve_spec(torch, gpu, model, base, base_toks, n_requests=8,
+                     n_slots=4, lead_window=4, k=4):
+    """The speculative main path: the ``serve`` phase's workload (slab
+    store, int8 KV) with ``draft="model"``, K = ``k``, the draft being the
+    target's own config and weights (a self-draft: the repository has no
+    draft checkpoint), then a shorter ``draft="prompt_lookup"`` run on
+    repeated-phrase prompts.  Verify steps run K1's tiles (M = slots x
+    (K+1)), the draft's decode steps its GEMV (M = slots), and paged
+    attention never runs."""
+    import numpy as np
+
+    from repro_torch import serving
+
+    cfg = model["cfg"].replace(kv_cache_int8=True)
+    params = model["params"]
+    per_forward = 7 * cfg.num_layers
+
+    def engine_for(c, draft, telemetry=None):
+        kw = (dict(draft_cfg=c, draft_params=params) if draft == "model"
+              else {})
+        return serving.ServingEngine(
+            c, params, serving.ServeConfig(max_new_tokens=32,
+                                           temperature=0.0, draft=draft,
+                                           num_draft_tokens=k,
+                                           telemetry=telemetry),
+            device="cuda", **kw)
+
+    def expected(loop, spans):
+        routes, _ = matmul_routes(loop.stream, per_forward,
+                                  verify_s=k + 1)
+        d_routes, d_counts = draft_routes(spans, per_forward, k)
+        want = {"bp_matmul_gemv": routes["gemv"] + d_routes["gemv"],
+                "bp_matmul_tile": routes["tile"] + d_routes["tile"],
+                "paged_attention": 0}
+        want["bp_matmul"] = want["bp_matmul_gemv"] + want["bp_matmul_tile"]
+        return want, d_counts
+
+    prompts = _requests(serving, np.random.default_rng(0), cfg.vocab_size,
+                        n_requests)
+    cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
+    sched = serving.SchedulerConfig(lead_window=lead_window)
+    kw = dict(n_slots=n_slots, cache_T=cache_T, sched_cfg=sched)
+    t_phase, marks = time.perf_counter(), {}
+    tel = span_recorder(serving)
+    engine = engine_for(cfg, "model", tel)
+    # warm-up serve (allocator): not measured
+    engine.serve(_copies(serving, prompts[:2], 8), **kw)
+    torch.cuda.synchronize()
+    marks["warm_up"] = time.perf_counter()
+
+    # -- the measured main-path run: counts zeroed just before, read after
+    tel.spans.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loop = engine.make_loop(_copies(serving, prompts), **kw)
+    report = loop.run()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want, d_counts = expected(loop, tel.spans)
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    toks = {r.request_id: r.tokens.tolist() for r in report.results}
+    n_prefill = sum(1 for r in loop.stream if r["kind"] == "prefill")
+    step_ms = [1e3 * r["wall_s"] for r in loop.stream
+               if r["kind"] == "verify"]
+    draft_ms = [1e3 * r["phases"]["draft_s"] for r in loop.stream
+                if r["kind"] == "verify"]
+    marks["main"] = time.perf_counter()
+
+    # -- the same speculative serve through the plain versions
+    reset_counts()
+    plain = engine_for(cfg.replace(matmul_backend="plain"), "model")
+    rep_plain = plain.serve(_copies(serving, prompts), **kw)
+    plain_launches = launch_counts()
+    reset_counts()
+    raw = [r.prompt for r in prompts]
+    flips = {
+        "serve": _stream_flips(torch, np, engine, raw, toks, base_toks,
+                               cache_T, ("spec", "serve")),
+        "plain": _stream_flips(
+            torch, np, engine, raw, toks,
+            {r.request_id: r.tokens.tolist() for r in rep_plain.results},
+            cache_T, ("spec", "plain"))}
+    reset_counts()
+    marks["plain_and_flips"] = time.perf_counter()
+    # a profiled serve of one request and 4 new tokens (one proposal, one
+    # verify step): the profiler's post-processing grows with the ~5,000
+    # kernels of every forward, and a step here runs K+2 forwards
+    profile = _profile_serve(torch, engine, _copies(serving, prompts[:1], 4),
+                             n_slots, cache_T, sched)
+    reset_counts()
+    marks["profile"] = time.perf_counter()
+
+    # -- prompt lookup on repeated-phrase prompts, against a plain decode
+    # of the same prompts
+    look = _lookup_requests(serving, np.random.default_rng(3),
+                            cfg.vocab_size, n_slots)
+    l_kw = dict(n_slots=n_slots, sched_cfg=sched,
+                cache_T=max(r.prompt_len + r.max_new_tokens
+                            for r in look) + 8)
+    l_engine = engine_for(cfg, "prompt_lookup")
+    reset_counts()
+    l_loop = l_engine.make_loop(_copies(serving, look), **l_kw)
+    l_rep = l_loop.run()
+    torch.cuda.synchronize()
+    l_launches = launch_counts()
+    l_routes, _ = matmul_routes(l_loop.stream, per_forward, verify_s=k + 1)
+    l_want = {"bp_matmul_gemv": l_routes["gemv"],
+              "bp_matmul_tile": l_routes["tile"], "paged_attention": 0,
+              "bp_matmul": l_routes["gemv"] + l_routes["tile"]}
+    reset_counts()
+    l_base_loop = engine_for(cfg, "none").make_loop(_copies(serving, look),
+                                                    **l_kw)
+    l_base = l_base_loop.run()
+    reset_counts()
+    l_toks = {r.request_id: r.tokens.tolist() for r in l_rep.results}
+    l_flips = _stream_flips(
+        torch, np, engine, [r.prompt for r in look], l_toks,
+        {r.request_id: r.tokens.tolist() for r in l_base.results},
+        l_kw["cache_T"], ("lookup", "serve"))
+    marks["prompt_lookup"] = time.perf_counter()
+
+    p = serving.percentiles(step_ms, qs=(50, 90))
+    result = {
+        "phase": "serve_spec", "gpu": gpu, "model": cfg.name,
+        "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "mode": cfg.matmul_mode, "kv_cache_int8": cfg.kv_cache_int8,
+        "cache_backend": "slab", "draft": report.draft,
+        "draft_model": "self-draft (the target's config and weights)",
+        "num_draft_tokens": k, "n_requests": n_requests,
+        "n_slots": n_slots, "lead_window": lead_window, "cache_T": cache_T,
+        "prefill_calls": n_prefill, "verify_steps": report.steps,
+        "serve_decode_steps": base["decode_steps"],
+        "draft_prefills": d_counts["draft_prefill"],
+        "propose_calls": d_counts["draft_propose"],
+        "drafted_tokens": report.drafted_tokens,
+        "accepted_tokens": report.accepted_tokens,
+        "acceptance_rate": report.acceptance_rate,
+        "committed_tokens_per_step": report.committed_tokens_per_step,
+        "total_new_tokens": report.total_new_tokens,
+        "launches": launches, "expected_launches": want,
+        "plain_backend_launches": plain_launches,
+        "tokens_equal_serve": not flips["serve"],
+        "serve_flips": flips["serve"],
+        "tokens_equal_plain_backend": not flips["plain"],
+        "plain_flips": flips["plain"],
+        "decode_tokens_per_s": report.decode_tokens_per_s,
+        "serve_decode_tokens_per_s": base["decode_tokens_per_s"],
+        "step_wall_tokens_per_s": step_wall_rate(loop.stream),
+        "serve_step_wall_tokens_per_s": base["step_wall_tokens_per_s"],
+        "verify_step_ms_p50": p["p50"] if p else None,
+        "verify_step_ms_p90": p["p90"] if p else None,
+        "draft_ms_p50": serving.percentiles(draft_ms, qs=(50,))["p50"],
+        "ttft_wall_s_by_request": [r.ttft_wall_s for r in report.results],
+        "prefill_s": report.prefill_s, "decode_s": report.decode_s,
+        "peak_mem_gb": peak_mem_gb,
+        "phase_wall_s": _spans(marks, t_phase),
+        "profile": profile,
+        "prompt_lookup": {
+            "n_requests": len(look), "phrase_tokens": 16,
+            "prompt_lens": [r.prompt_len for r in look],
+            "verify_steps": l_rep.steps, "decode_steps": l_base.steps,
+            "drafted_tokens": l_rep.drafted_tokens,
+            "accepted_tokens": l_rep.accepted_tokens,
+            "acceptance_rate": l_rep.acceptance_rate,
+            "committed_tokens_per_step": l_rep.committed_tokens_per_step,
+            "decode_tokens_per_s": l_rep.decode_tokens_per_s,
+            "serve_decode_tokens_per_s": l_base.decode_tokens_per_s,
+            "step_wall_tokens_per_s": step_wall_rate(l_loop.stream),
+            "serve_step_wall_tokens_per_s": step_wall_rate(
+                l_base_loop.stream),
+            "launches": l_launches, "expected_launches": l_want,
+            "tokens_equal_serve": not l_flips, "serve_flips": l_flips},
+    }
+    emit(result)
+    for rep in (report, l_rep):
+        check(all(r.finish_reason == "length" for r in rep.results),
+              "a speculative request finished for another reason than "
+              "length")
+    check(all(0 <= t < cfg.vocab_padded for ts in toks.values() for t in ts),
+          "a generated token lies outside the padded vocabulary")
+    for got, exp, what in ((launches, want, "self-draft"),
+                           (l_launches, l_want, "prompt-lookup")):
+        for name, n in exp.items():
+            check(got[name] == n, f"{name} launched {got[name]} times in "
+                                  f"the {what} serve, expected {n}")
+    check(d_counts["draft_propose"] > 0, "the draft model never proposed")
+    check(not any(plain_launches.values()),
+          f"the plain backend launched a kernel: {plain_launches}")
+    check(report.steps < base["decode_steps"],
+          f"the self-draft took {report.steps} verify steps, not fewer "
+          f"than the serve's {base['decode_steps']} decode steps")
+    check(report.committed_tokens_per_step > 1.0,
+          "the self-draft committed one token per step or fewer")
+    for name, fl in (*flips.items(), ("prompt-lookup", l_flips)):
+        bad = [f for f in fl if not f["near_tie"]]
+        check(not bad, f"speculative and {name} serves differ beyond a "
+                       f"near-tie: {bad}")
+    return result, launches
+
+
+def paged_decode_gap(torch, engine, prompts, n_steps=4):
+    """How far the paged-attention kernel and its plain version move the
+    logits: the same prompts prefilled into two paged stores, then
+    ``n_steps`` decode steps on each, one through the kernel and one
+    through the plain version (K1 is bit-exact on both, so K2's rounding,
+    carried through 28 layers of bf16 and int8 activation quantization, is
+    the only difference), each fed the kernel path's argmax.  Returns the
+    largest logit difference over every step, row and vocabulary entry:
+    how far two correct evaluations of one decode step may part."""
+    import numpy as np
+
+    from repro_torch import serving
+    from repro_torch.models import api
+    cfg = engine.cfg
+    ex = engine.executor
+    dev = ex.device
+    bs = engine.serve_cfg.block_size
+    cache_T = max(len(p) for p in prompts) + n_steps + bs
+    slots = list(range(len(prompts)))
+    cms = []
+    for c in (cfg, cfg.replace(matmul_backend="plain")):
+        cm = serving.make_cache_manager(cfg, len(prompts), cache_T,
+                                        backend="paged", block_size=bs,
+                                        executor=ex)
+        for p in prompts:
+            _, src = ex.prefill({"tokens": p[None]}, cm.prefill_T)
+            cm.insert(cm.alloc(), src, len(p), tokens=p)
+        cms.append((cm, c))
+    feed = np.asarray([p[-1] for p in prompts], np.int64)
+    gap = 0.0
+    with torch.no_grad():
+        for _ in range(n_steps):
+            out = []
+            for cm, c in cms:
+                check(cm.prepare_append(slots) is None,
+                      "the gap measurement's pool ran dry")
+                batch = {"tokens": torch.as_tensor(feed[:, None],
+                                                   device=dev),
+                         "cache": cm.pages,
+                         "cache_len": torch.as_tensor(
+                             cm.lengths.astype(np.int64), device=dev),
+                         "block_tables": cm.block_tables_device()}
+                logits, _ = api.decode_step_paged(engine.params, c, batch)
+                cm.advance(slots)
+                out.append(logits.float())
+            gap = max(gap, (out[0] - out[1]).abs().max().item())
+            feed = out[0].argmax(-1).cpu().numpy()
+    return gap
+
+
+def phase_serve_chunked(torch, gpu, model, base, base_toks, n_requests=8,
+                        n_slots=4, lead_window=4, block_size=16,
+                        num_blocks=PAGED_NUM_BLOCKS, chunk=64):
+    """Chunked prefill on the paged main path: the ``serve_paged`` phase's
+    workload and pool with ``prefill_chunk=chunk`` and no drafter.  A
+    prompt is admitted on its first ``chunk`` tokens; the rest rides verify
+    steps of ``chunk`` rows per slot (K1's tiles); steps that carry no
+    chunk are classic paged decodes (K1's GEMV and paged attention)."""
+    import numpy as np
+
+    from repro_torch import serving
+
+    cfg = model["cfg"].replace(kv_cache_int8=False)
+    params = model["params"]
+    per_forward = 7 * cfg.num_layers
+
+    def engine_for(c):
+        return serving.ServingEngine(
+            c, params, serving.ServeConfig(max_new_tokens=32,
+                                           temperature=0.0,
+                                           cache_backend="paged",
+                                           block_size=block_size,
+                                           prefill_chunk=chunk),
+            device="cuda")
+
+    prompts = _paged_requests(serving, np.random.default_rng(1),
+                              cfg.vocab_size, n_requests)
+    cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
+    kw = dict(n_slots=n_slots, cache_T=cache_T, num_blocks=num_blocks,
+              sched_cfg=serving.SchedulerConfig(lead_window=lead_window))
+    t_phase, marks = time.perf_counter(), {}
+    engine = engine_for(cfg)
+    engine.serve(_copies(serving, prompts[:2], 8), **kw)     # warm-up
+    torch.cuda.synchronize()
+    marks["warm_up"] = time.perf_counter()
+
+    # -- the measured main-path run: counts zeroed just before, read after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loop = engine.make_loop(_copies(serving, prompts), **kw)
+    report = loop.run()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    toks = {r.request_id: r.tokens.tolist() for r in report.results}
+    kinds = [r["kind"] for r in loop.stream]
+    n_decode, n_verify = kinds.count("decode"), kinds.count("verify")
+    routes, _ = matmul_routes(loop.stream, per_forward, verify_s=chunk)
+    want = {"bp_matmul": per_forward * (kinds.count("prefill") + n_decode
+                                        + n_verify),
+            "bp_matmul_gemv": routes["gemv"],
+            "bp_matmul_tile": routes["tile"],
+            "paged_attention": cfg.num_layers * n_decode}
+    marks["main"] = time.perf_counter()
+
+    # -- the same chunked serve through the plain versions
+    reset_counts()
+    rep_plain = engine_for(cfg.replace(matmul_backend="plain")).serve(
+        _copies(serving, prompts), **kw)
+    plain_launches = launch_counts()
+    reset_counts()
+    raw = [r.prompt for r in prompts]
+    # the kernel and plain serves differ only in paged attention's rounding
+    # (K1 is bit-exact): a flip between them is a near-tie when its logits
+    # lie within the gap two evaluations of a decode step show
+    gap = paged_decode_gap(torch, engine, raw[:n_slots])
+    reset_counts()
+    flips = {
+        "serve_paged": _stream_flips(torch, np, engine, raw, toks, base_toks,
+                                     cache_T, ("chunked", "one_shot")),
+        "plain": _stream_flips(
+            torch, np, engine, raw, toks,
+            {r.request_id: r.tokens.tolist() for r in rep_plain.results},
+            cache_T, ("chunked", "plain"), tie=gap)}
+    marks["plain_and_flips"] = time.perf_counter()
+
+    step_ms = {kind: [1e3 * r["wall_s"] for r in loop.stream
+                      if r["kind"] == kind] for kind in ("decode", "verify")}
+    pct = {kind: serving.percentiles(v, qs=(50, 90))
+           for kind, v in step_ms.items()}
+    result = {
+        "phase": "serve_chunked", "gpu": gpu, "model": cfg.name,
+        "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "mode": cfg.matmul_mode, "kv_cache_int8": cfg.kv_cache_int8,
+        "cache_backend": "paged", "block_size": block_size,
+        "num_blocks": num_blocks, "prefill_chunk": chunk,
+        "n_requests": n_requests, "n_slots": n_slots,
+        "lead_window": lead_window, "cache_T": cache_T,
+        "prefill_calls": kinds.count("prefill"),
+        "verify_steps": n_verify, "decode_steps": n_decode,
+        "steps": report.steps, "serve_paged_steps": base["decode_steps"],
+        "chunk_tokens": report.chunk_tokens,
+        "total_new_tokens": report.total_new_tokens,
+        "n_preemptions": report.n_preemptions,
+        "serve_paged_preemptions": base["n_preemptions"],
+        "prefix_hit_blocks": report.prefix_hit_blocks,
+        "cow_blocks": report.cow_blocks,
+        "peak_blocks_in_use": report.peak_blocks_in_use,
+        "launches": launches, "expected_launches": want,
+        "plain_backend_launches": plain_launches,
+        "tokens_equal_serve_paged": not flips["serve_paged"],
+        "serve_paged_flips": flips["serve_paged"],
+        "tokens_equal_plain_backend": not flips["plain"],
+        "plain_flips": flips["plain"],
+        "kernel_vs_plain_decode_logit_gap": gap,
+        "ttft_wall_s_by_request": [r.ttft_wall_s for r in report.results],
+        "serve_paged_ttft_wall_s_by_request":
+            base["ttft_wall_s_by_request"],
+        "decode_tokens_per_s": report.decode_tokens_per_s,
+        "serve_paged_decode_tokens_per_s": base["decode_tokens_per_s"],
+        "step_wall_tokens_per_s": step_wall_rate(loop.stream),
+        "serve_paged_step_wall_tokens_per_s":
+            base["step_wall_tokens_per_s"],
+        **{f"{kind}_step_ms_p{q}": (v[f"p{q}"] if v else None)
+           for kind, v in pct.items() for q in (50, 90)},
+        "prefill_s": report.prefill_s, "decode_s": report.decode_s,
+        "peak_mem_gb": peak_mem_gb,
+        "phase_wall_s": _spans(marks, t_phase),
+    }
+    emit(result)
+    check(all(r.finish_reason == "length" for r in report.results),
+          "a chunked request finished for another reason than length")
+    check(all(0 <= t < cfg.vocab_padded for ts in toks.values() for t in ts),
+          "a generated token lies outside the padded vocabulary")
+    for name, n in want.items():
+        check(launches[name] == n, f"{name} launched {launches[name]} times "
+                                   f"in the chunked serve, expected {n}")
+    check(launches["routed_plain_int8_kv"] == 0,
+          "paged attention was routed to the plain version")
+    check(n_verify > 0 and report.chunk_tokens > 0,
+          "no prompt was fed through a chunk step")
+    check(not any(v for k, v in plain_launches.items()
+                  if k != "routed_plain_int8_kv"),
+          f"the plain backend launched a kernel: {plain_launches}")
+    for name, fl in flips.items():
+        bad = [f for f in fl if not f["near_tie"]]
+        check(not bad, f"chunked and {name} serves differ beyond a "
+                       f"near-tie: {bad}")
+    return result, launches
 
 
 def build_rwkv(torch):
@@ -1331,24 +1876,9 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
     import numpy as np
 
     from repro_torch import serving
-    from repro_torch.kernels.bitparticle_matmul import ops as bp_ops
-    from repro_torch.kernels.paged_attention import ops as pa_ops
-    from repro_torch.kernels.wkv6 import ops as wkv_ops
 
     cfg, params = model["cfg"], model["params"]
     L = cfg.num_layers
-
-    def reset():
-        bp_ops.reset_launches()
-        pa_ops.reset_launches()
-        wkv_ops.reset_launches()
-
-    def counts():
-        return {"bp_matmul": bp_ops.LAUNCHES["bp_matmul"],
-                "bp_matmul_gemv": bp_ops.LAUNCHES["gemv"],
-                "bp_matmul_tile": bp_ops.LAUNCHES["tile"],
-                "paged_attention": pa_ops.LAUNCHES["paged_attention"],
-                "wkv6": wkv_ops.LAUNCHES["wkv6"]}
 
     scfg = serving.ServeConfig(max_new_tokens=32, temperature=0.0)
     engine = serving.ServingEngine(cfg, params, scfg, device="cuda")
@@ -1356,27 +1886,21 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
     prompts = _rwkv_requests(serving, np.random.default_rng(2),
                              cfg.vocab_size, n_requests)
 
-    def fresh():
-        return [serving.Request(prompt=r.prompt.copy(),
-                                max_new_tokens=r.max_new_tokens,
-                                arrival_time=r.arrival_time, request_id=i)
-                for i, r in enumerate(prompts)]
-
     cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
     kw = dict(n_slots=n_slots, cache_T=cache_T, sched_cfg=sched)
     # warm-up serve (allocator, one kernel-route and one step-route
     # prefill): not measured
-    engine.serve(fresh()[2:4], **kw)
+    engine.serve(_copies(serving, prompts)[2:4], **kw)
     torch.cuda.synchronize()
 
     # -- the measured main-path run: counts zeroed just before, read after
     states = _capture_prefill_states(engine.executor)
     torch.cuda.reset_peak_memory_stats()
-    reset()
-    loop = engine.make_loop(fresh(), **kw)
+    reset_counts()
+    loop = engine.make_loop(_copies(serving, prompts), **kw)
     report = loop.run()
     torch.cuda.synchronize()
-    launches = counts()
+    launches = launch_counts()
     peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     del engine.executor.prefill
     prefills = [r for r in loop.stream if r["kind"] == "prefill"]
@@ -1402,14 +1926,14 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
     kernel_dev = max(r["kernel_vs_plain"] for r in noise)
 
     # -- the same serve through the plain versions of both kernels
-    reset()
+    reset_counts()
     plain = serving.ServingEngine(cfg.replace(matmul_backend="plain"),
                                   params, scfg, device="cuda")
     plain_states = _capture_prefill_states(plain.executor)
-    rep_plain = plain.serve(fresh(), **kw)
+    rep_plain = plain.serve(_copies(serving, prompts), **kw)
     del plain.executor.prefill
-    plain_launches = counts()
-    reset()
+    plain_launches = launch_counts()
+    reset_counts()
     # every prefill's WKV state, kernel serve against plain serve: where no
     # amplification can reach it yet (layer 0), held to K3's tolerance
     state_gap = wkv_state_by_layer(torch, states, plain_states, chunk)
@@ -1428,7 +1952,7 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
         if g != toks[i]:
             gen_flips.append(_flip(torch, np, engine, r.prompt, toks[i], g,
                                    cache_T, i, tie=tie))
-    reset()
+    reset_counts()
     # a short profiled serve: a 256-token prompt (the WKV6 kernel) and the
     # 100-token one (the step recurrence), 8 new tokens each
     long_i = next(i for i, r in enumerate(prompts) if r.prompt_len == 256)
@@ -1438,7 +1962,7 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
                                         arrival_time=float(j))
                         for j, i in enumerate((long_i, 3))],
         n_slots, cache_T, sched)
-    reset()
+    reset_counts()
 
     p = serving.percentiles(step_ms, qs=(50, 90))
     result = {
@@ -1882,13 +2406,20 @@ def main() -> int:
         phase_device(torch, gpu)
         phase_kernels(torch, gpu)
         flush = Flusher(torch)
-        records.append({"kernel_time": phase_kernel_time(torch, gpu, flush)})
+        timed, verify_rows = phase_kernel_time(torch, gpu, flush)
+        records.append({"kernel_time": timed})
         model = build_model(torch)
-        serve, launches = phase_serve(torch, gpu, model)
+        serve, launches, serve_toks = phase_serve(torch, gpu, model)
         records.append({"serve": serve})
-        paged, paged_launches, paged_shape = phase_serve_paged(torch, gpu,
-                                                               model)
+        paged, paged_launches, paged_shape, paged_toks = phase_serve_paged(
+            torch, gpu, model)
         records.append({"serve_paged": paged})
+        spec, spec_launches = phase_serve_spec(torch, gpu, model, serve,
+                                               serve_toks)
+        records.append({"serve_spec": spec})
+        chunked, chunked_launches = phase_serve_chunked(
+            torch, gpu, model, paged, paged_toks)
+        records.append({"serve_chunked": chunked})
         del model
         rwkv = build_rwkv(torch)
         serve_rwkv, rwkv_launches, rwkv_shape = phase_serve_rwkv(
@@ -1899,11 +2430,16 @@ def main() -> int:
         bp = decode_layer_summary(torch, flush, serve["n_slots"], launches)
         tile = prefill_layer_summary(torch, flush, launches["prefill_rows"],
                                      rwkv_launches["prefill_rows"], launches)
+        tile["qwen2_verify_layer"] = verify_rows
         paths = {"serve": launches, "serve_paged": paged_launches,
+                 "serve_spec": spec_launches,
+                 "serve_chunked": chunked_launches,
                  "serve_rwkv": rwkv_launches}
-        for entry, key in ((bp, "bp_matmul_gemv"), (tile, "bp_matmul_tile")):
-            entry["launches_by_path"] = {p: c[key] for p, c in paths.items()}
         pa = paged_layer_summary(torch, flush, paged_shape, paged_launches)
+        for entry, key in ((bp, "bp_matmul_gemv"), (tile, "bp_matmul_tile"),
+                           (pa, "paged_attention")):
+            entry["launches_by_path"] = {p: c.get(key, 0)
+                                         for p, c in paths.items()}
         wk = wkv6_summary(torch, flush, gpu, rwkv_shape, rwkv_launches)
         summary = [bp, tile, pa, wk]
         for k in summary:

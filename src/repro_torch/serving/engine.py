@@ -13,14 +13,18 @@ recurrent state has no sequence axis to page).
     (``"paged"``: blocks on demand, prefix sharing, copy-on-write, and
     preempt-and-replay when the pool runs dry).  Greedy outputs are
     token-identical to the static path and across the two stores.
+  * speculative decoding (``draft="prompt_lookup"`` or ``"model"``) and
+    chunked prefill (``prefill_chunk``) ride the multi-token verify step
+    (``ServeLoop.decode_once_spec``), dense family only, greedy only; both
+    leave the greedy streams unchanged.
 
 The engine is host-side orchestration; device work goes through
 ``serving/executor.py``.  In a ``bp_*`` matmul mode the engine quantizes
 every dense weight to int8 + per-channel scale once, at construction.
 
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-speculative decoding, chunked prefill, the sparsity probe, fault injection
-and its recovery ladder, mesh serving, and telemetry sinks.  Of the
+the sparsity probe, fault injection and its recovery ladder (the drafter
+fault rung included), mesh serving, and telemetry sinks.  Of the
 degradation ladder only the pool-pressure rung (``pool_pressure_limit``)
 is ported.  ``ServeReport.deployment`` is None until the
 BitParticle cost models are ported.
@@ -49,6 +53,7 @@ from repro_torch.serving.queue import Request, RequestQueue, RequestState
 from repro_torch.serving.scheduler import (QuasiSyncScheduler,
                                            SchedulerConfig,
                                            prefill_bucket_len)
+from repro_torch.serving.speculative import make_drafter
 from repro_torch.serving.telemetry import (SCHEMA_VERSION, Telemetry,
                                            percentiles, reduce_stream)
 
@@ -68,12 +73,20 @@ class ServeConfig:
     # preemptions between ladder checks before the lead window is halved
     # (sustained pool pressure; 0 disables the rung)
     pool_pressure_limit: int = 8
+    # chunked prefill: a prompt longer than ``prefill_chunk`` is admitted
+    # on its first chunk only; the rest rides the multi-token verify step,
+    # at most ``prefill_chunk`` prompt tokens per slot and step, beside
+    # every other slot's decode.  Greedy-only; None = one-shot prefill
+    prefill_chunk: Optional[int] = None
+    # speculative decoding: "none" | "prompt_lookup" (weight-free n-gram
+    # drafter) | "model" (a same-family draft model: pass draft_cfg /
+    # draft_params to the engine).  Greedy-only
+    draft: str = "none"
+    num_draft_tokens: int = 4         # K: drafts verified per step
+    telemetry: Optional[Telemetry] = None
     # the fields below select features that are not ported yet; anything
     # but the default raises NotImplementedError when the engine is built
     mesh_shape: Optional[Tuple[int, int]] = None
-    prefill_chunk: Optional[int] = None
-    draft: str = "none"
-    telemetry: Optional[Telemetry] = None
     probe: Optional[object] = None
     faults: Optional[object] = None
 
@@ -99,10 +112,6 @@ def check_ported(serve_cfg: ServeConfig) -> None:
     unported = []
     if serve_cfg.mesh_shape is not None:
         unported.append("mesh_shape")
-    if serve_cfg.prefill_chunk is not None:
-        unported.append("prefill_chunk")
-    if serve_cfg.draft != "none":
-        unported.append(f"draft={serve_cfg.draft!r}")
     if serve_cfg.probe is not None:
         unported.append("probe")
     if serve_cfg.faults is not None:
@@ -171,6 +180,10 @@ class ServeReport:
     peak_blocks_in_use: int = 0       # paged: max live blocks at any step
     peak_active_slots: int = 0
     mesh_shape: Optional[Tuple[int, int]] = None
+    # speculative decoding (draft != "none")
+    draft: str = "none"
+    drafted_tokens: int = 0           # drafts submitted to verify steps
+    accepted_tokens: int = 0          # drafts the target's argmax confirmed
     committed_tokens_per_step: float = 0.0
     ttft_wall: Optional[Dict[str, float]] = None
     itl_wall: Optional[Dict[str, float]] = None
@@ -179,6 +192,15 @@ class ServeReport:
     n_cancelled: int = 0
     n_timed_out: int = 0
     n_failed: int = 0
+    # chunked prefill: prompt tokens ingested through chunk steps
+    chunk_tokens: int = 0
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the verify step accepted."""
+        if self.drafted_tokens == 0:
+            return 0.0
+        return self.accepted_tokens / self.drafted_tokens
 
     @property
     def decode_tokens_per_s(self) -> float:
@@ -204,6 +226,8 @@ class ServeLoop:
                                if self.serve_cfg.telemetry is not None
                                else Telemetry())
         engine.executor.set_telemetry(self.tel)
+        if engine.draft_executor is not None:
+            engine.draft_executor.set_telemetry(self.tel)
         # the in-memory step-record stream: report() is a pure fold over it
         self.stream: List[dict] = []
         self._wall0 = time.perf_counter()
@@ -215,6 +239,26 @@ class ServeLoop:
         if cache_T is None:
             need = [r.prompt_len + r.max_new_tokens for r in requests] or [1]
             cache_T = max(need) + self.serve_cfg.cache_margin
+        # chunked prefill: validate up front so a misconfigured loop fails
+        # at construction, not at the first long prompt
+        self.prefill_chunk = self.serve_cfg.prefill_chunk
+        if self.prefill_chunk is not None:
+            if self.prefill_chunk < 1:
+                raise ValueError("prefill_chunk must be >= 1 (or None)")
+            if not api.supports_verify(engine.cfg):
+                raise ValueError(
+                    f"family {engine.cfg.family!r} has no multi-token "
+                    f"verify path: chunked prefill feeds prompt chunks "
+                    f"through verify_step; serve with prefill_chunk=None")
+            if self.serve_cfg.temperature > 0:
+                raise ValueError(
+                    "chunked prefill is greedy-only (temperature == 0): "
+                    "the final chunk's first token comes from the verify "
+                    "step's fused argmax")
+        # slot -> next unfed prompt position of a request mid-chunked-
+        # prefill (cleared on preemption and eviction: replay restarts the
+        # chunks)
+        self.chunking: Dict[int, int] = {}
         self.n_slots = n_slots
         self.cm = make_cache_manager(engine.cfg, n_slots, cache_T,
                                      backend=self.serve_cfg.cache_backend,
@@ -236,6 +280,7 @@ class ServeLoop:
                                on_reject=self._on_reject)
         self.sched = QuasiSyncScheduler(self.rq, self.cm, sched_cfg,
                                         telemetry=self.tel)
+        self.sched.prefill_chunk = self.prefill_chunk
         self.ragged = self.sched.bucketing == "pow2"
         self.arrivals = collections.deque(requests)
         self.active: Dict[int, Request] = {}      # slot -> request
@@ -256,11 +301,25 @@ class ServeLoop:
         self._inbox: List[Request] = []
         self._inbox_lock = threading.Lock()
         self._closed = False
+        # speculative decoding: a drafter proposes up to K tokens per slot,
+        # one multi-token verify step checks them all, and each slot
+        # commits 1..K+1 tokens per step
+        self.drafter = make_drafter(self.serve_cfg, engine,
+                                    n_slots=n_slots, cache_T=self.cache_T,
+                                    telemetry=self.tel)
+        self.n_drafted = 0
+        self.n_accepted = 0
         self._decode_fn = engine.executor.decode_sample_fn(
             self.serve_cfg.temperature, paged=self.paged)
+        # the verify entry point serves speculation and chunked prefill
+        # alike (a chunk row feeds known prompt tokens where a decode row
+        # feeds drafts)
+        if self.drafter is not None or self.prefill_chunk is not None:
+            self._verify_fn = engine.executor.verify_sample_fn(
+                paged=self.paged)
         self._emit("run", cache_backend=str(self.serve_cfg.cache_backend),
                    n_slots=int(n_slots), cache_T=int(self.cache_T),
-                   draft="none",
+                   draft=str(self.serve_cfg.draft),
                    temperature=float(self.serve_cfg.temperature),
                    mesh_shape=None,
                    block_size=int(self.serve_cfg.block_size))
@@ -302,8 +361,13 @@ class ServeLoop:
     # -- lifecycle: cancellation + deadlines --------------------------------
 
     def _evict(self, slot: int) -> Request:
+        """Remove ``slot``'s request from the batch and release what it
+        holds (cache slot or block table, chunk state, drafter state)."""
         req = self.active.pop(slot)
+        self.chunking.pop(slot, None)
         self.cm.free(slot)
+        if self.drafter is not None:
+            self.drafter.on_free(slot)
         return req
 
     def sweep(self):
@@ -399,10 +463,15 @@ class ServeLoop:
         """Evict ``slot``'s request back to the queue head with its
         generated tokens queued for token-exact replay."""
         req = self.active.pop(slot)
+        # a mid-chunk preemption restarts chunked prefill on re-admission
+        # (the emitted-token replay list still pins token identity)
+        self.chunking.pop(slot, None)
         discarded = len(req.tokens)
         with self.tel.span("preempt", slot=slot,
                            request_id=req.request_id):
             self.cm.free(slot)
+            if self.drafter is not None:
+                self.drafter.on_free(slot)
             req.preempt()       # -> WAITING, tokens queued for replay
             self.rq.push_front(req)
         self.n_preemptions += 1
@@ -422,13 +491,18 @@ class ServeLoop:
                        action="shrink_lead_window", lead_window=int(new_e))
 
     def insert_with_preemption(self, slot: int, cache, req: Request,
-                               src_index: int):
+                               src_index: int,
+                               length: Optional[int] = None):
         """Install a prefill cache into ``slot``, preempting actives (newest
-        first) until the paged pool can cover the miss suffix."""
+        first) until the paged pool can cover the miss suffix.  ``length``
+        is the prefilled prefix being installed (default the whole prompt;
+        a chunked admission installs its first chunk only)."""
+        length = req.prompt_len if length is None else length
         while True:
             try:
-                self.cm.insert(slot, cache, req.prompt_len,
-                               src_index=src_index, tokens=req.prompt)
+                self.cm.insert(slot, cache, length,
+                               src_index=src_index,
+                               tokens=req.prompt[:length])
                 return
             except NoFreeBlocks:
                 # the inserting request holds no slot entry in `active`
@@ -442,7 +516,10 @@ class ServeLoop:
 
     def admit(self, group: List[Request], new_sync: bool = True):
         """Fused prefill of one admission group: run the prompts, sample
-        (or replay) each request's first token, install survivors."""
+        (or replay) each request's first token, install survivors.  Under
+        chunked prefill a long prompt is admitted on its first chunk only:
+        it emits no token here and stays PREFILL while the rest of its
+        prompt rides the verify steps."""
         engine = self.engine
         t_start = time.perf_counter()
         for req in group:
@@ -450,12 +527,15 @@ class ServeLoop:
             req.admitted_at = self.now
             if req.wall_admitted_at is None:
                 req.wall_admitted_at = t_start
-        lens = np.asarray([r.prompt_len for r in group], np.int32)
+        chunk = self.prefill_chunk
+        eff = [r.prompt_len if chunk is None else min(r.prompt_len, chunk)
+               for r in group]
+        lens = np.asarray(eff, np.int32)
         pad_to = (prefill_bucket_len(int(lens.max()), self.cm.cache_T)
                   if self.ragged else int(lens.max()))
         toks = np.zeros((len(group), pad_to), np.int32)
         for j, r in enumerate(group):
-            toks[j, :r.prompt_len] = r.prompt
+            toks[j, :eff[j]] = r.prompt[:eff[j]]
         t0 = time.perf_counter()
         with self.tel.span("prefill", group_size=len(group), pad_to=pad_to):
             logits, cache = self.executor.prefill(
@@ -469,32 +549,42 @@ class ServeLoop:
         n_emitted = 0
         with self.tel.span("install", group_size=len(group)):
             for j, req in enumerate(group):
-                if req.replay:
-                    tok = req.replay.pop(0)
-                else:
-                    arr = engine._sample(logits[j:j + 1],
-                                         sample_seed(req.request_id, 0))
-                    self.tel.count("d2h_bytes", arr.nbytes)
-                    tok = int(arr[0])
-                self._append_token(req, tok, wall)
-                n_emitted += 1
-                if req.first_token_at is None:
-                    req.first_token_at = self.now
-                reason = engine._finished(req, tok)
-                if reason is not None:
-                    req.finish(self.now, reason)
-                    continue
+                chunked = eff[j] < req.prompt_len
+                if not chunked:
+                    if req.replay:
+                        tok = req.replay.pop(0)
+                    else:
+                        arr = engine._sample(logits[j:j + 1],
+                                             sample_seed(req.request_id, 0))
+                        self.tel.count("d2h_bytes", arr.nbytes)
+                        tok = int(arr[0])
+                    self._append_token(req, tok, wall)
+                    n_emitted += 1
+                    if req.first_token_at is None:
+                        req.first_token_at = self.now
+                    reason = engine._finished(req, tok)
+                    if reason is not None:
+                        req.finish(self.now, reason)
+                        continue
                 slot = self.cm.alloc()
                 try:
-                    self.insert_with_preemption(slot, cache, req, j)
+                    self.insert_with_preemption(slot, cache, req, j,
+                                                length=eff[j])
                 except BaseException:
                     self.cm.free(slot)   # never leak the slot
                     raise
                 req.slot = slot
                 self.active[slot] = req
+                if chunked:
+                    # no token yet: the first comes from the FINAL chunk's
+                    # argmax
+                    self.chunking[slot] = eff[j]
+                    continue
                 req.transition(RequestState.DECODE)
                 self.last_tok[slot] = tok
                 self.slot_seeds[slot] = req.request_id
+                if self.drafter is not None:
+                    self.drafter.on_admit(slot, req)
         install_s = time.perf_counter() - t_inst
         h2d, d2h = self._byte_deltas()
         self._emit("prefill", step=int(self.sched.n_decode_steps),
@@ -526,17 +616,21 @@ class ServeLoop:
 
     # -- stepping -----------------------------------------------------------
 
-    def writable_slots(self) -> List[int]:
-        """Active slots that can write this step's token.  On the paged
-        store every slot must own a writable block at its next position
-        (allocate at block boundaries, copy-on-write shared tails); when the
-        pool runs dry the newest admission is preempted and the check
-        retried."""
+    def writable_slots(self, counts: Optional[Dict[int, int]] = None
+                       ) -> List[int]:
+        """Active slots that can write this step's tokens: one per slot on
+        the classic path, ``counts[slot]`` (a verify step's span) on the
+        verify path.  On the paged store every slot must own writable
+        blocks over its span (allocate at block boundaries, copy-on-write
+        shared tails); when the pool runs dry the newest admission is
+        preempted and the check retried."""
         slots = list(self.active.keys())
         if not self.paged:
             return slots
         while slots:
-            if self.cm.prepare_append(slots) is None:
+            spans = None if counts is None else [counts.get(s, 1)
+                                                for s in slots]
+            if self.cm.prepare_append(slots, spans) is None:
                 return slots
             self.preempt(self.pick_victim())   # newest admission goes
             slots = list(self.active.keys())
@@ -604,6 +698,189 @@ class ServeLoop:
                    active_slots=int(len(slots)), n_slots=int(self.n_slots),
                    occupancy=occupancy, divergence=divergence,
                    committed_tokens=int(n_committed),
+                   h2d_bytes=h2d, d2h_bytes=d2h,
+                   **self._pool_gauges())
+
+    def decode_once_spec(self):
+        """One fused multi-token step: speculative verification and/or
+        chunked prefill over ONE (n_slots, S) forward pass.
+
+        Decode slots ride it as speculation: draft up to K tokens, verify
+        them all, commit the accepted prefix plus the target's own next
+        token (1..K+1 tokens per step, token-identical to classic greedy).
+        Chunk slots (requests mid-chunked-prefill) feed their next <= S
+        KNOWN prompt tokens instead: their K/V lands at the slot's
+        positions, the mid-chunk argmaxes are ignored, and when the prompt
+        is exhausted the FINAL fed position's argmax is the request's first
+        generated token.  With no drafter, decode slots commit one token
+        each, exactly a classic step.
+
+        Drafts are capped by each request's remaining output budget.  S is
+        K+1 for pure speculation and max(K+1, chunk) when chunk slots are
+        aboard; causality makes the wider shape's extra columns inert."""
+        t_start = time.perf_counter()
+        drafter = self.drafter
+        K = self.serve_cfg.num_draft_tokens if drafter is not None else 0
+        chunk_now = dict(self.chunking)
+        S = max(K + 1, self.prefill_chunk or 0) if chunk_now else K + 1
+        slots = list(self.active.keys())
+        dec = [s for s in slots if s not in chunk_now]
+        caps = {s: max(min(K, self.active[s].max_new_tokens
+                           - len(self.active[s].tokens) - 1), 0)
+                for s in dec}
+        t_draft = time.perf_counter()
+        drafts = {}
+        with self.tel.span("draft", n_slots=len(dec)):
+            if drafter is not None and any(caps.values()):
+                drafts = drafter.propose_all(
+                    {s: self.active[s] for s in dec}, caps)
+        draft_s = time.perf_counter() - t_draft
+        drafts = {s: np.asarray(drafts.get(s, ()), np.int32)[:caps[s]]
+                  for s in dec}
+        # chunk rows: the next <= S unfed prompt tokens per chunk slot
+        feeds = {s: np.asarray(self.active[s].prompt[p:p + S], np.int32)
+                 for s, p in chunk_now.items()}
+        # the paged store needs writable blocks over each slot's append
+        # span; a preemption inside may shrink the slot set
+        spans = {s: len(drafts[s]) + 1 for s in dec}
+        spans.update({s: len(feeds[s]) for s in chunk_now})
+        t_prep = time.perf_counter()
+        slots = self.writable_slots(spans)
+        prepare_s = time.perf_counter() - t_prep
+        if not slots:
+            return
+        # a preemption evicted slots (and cleared their chunk state):
+        # refresh both memberships before building rows
+        live = set(slots)
+        dec = [s for s in dec if s in live]
+        chunk_now = {s: p for s, p in chunk_now.items() if s in live}
+        toks = np.zeros((self.n_slots, S), np.int32)
+        for s in dec:
+            toks[s, 0] = self.last_tok[s]
+            d = drafts[s]
+            toks[s, 1:1 + len(d)] = d
+        for s in chunk_now:
+            toks[s, :len(feeds[s])] = feeds[s]
+        step = {"tokens": toks, "cache_len": self.cm.cache_len_vector()}
+        if self.paged:
+            step["block_tables"] = self.cm.block_tables_device()
+        t0 = time.perf_counter()
+        with self.tel.span("verify", n_slots=len(slots)):
+            greedy, new_cache = self._verify_fn(self.cm.cache, step)
+            greedy_np = greedy.cpu().numpy()     # waits for the device
+        wall = time.perf_counter()
+        dispatch_s = wall - t0
+        self.decode_s += dispatch_s
+        self.cm.update(new_cache)
+        self.tel.count("d2h_bytes", int(greedy_np.nbytes))
+        drafted0, accepted0 = self.n_drafted, self.n_accepted
+        commits: Dict[int, int] = {}        # cache POSITIONS advanced
+        finished: Dict[int, str] = {}
+        n_committed = 0                     # tokens EMITTED (decode output)
+        n_chunk_fed = 0                     # prompt tokens fed (chunk rows)
+        t_commit = time.perf_counter()
+        with self.tel.span("commit", n_slots=len(slots)):
+            for slot in slots:
+                req = self.active[slot]
+                if slot in chunk_now:
+                    # the fed prompt tokens are ground truth, so the cache
+                    # always advances by the feed span; only the FINAL
+                    # chunk's last argmax is an output
+                    n = len(feeds[slot])
+                    commits[slot] = n
+                    n_chunk_fed += n
+                    new_pos = chunk_now[slot] + n
+                    if new_pos < req.prompt_len:
+                        self.chunking[slot] = new_pos
+                        continue
+                    del self.chunking[slot]
+                    if req.replay:
+                        tok = req.replay.pop(0)
+                    else:
+                        tok = int(greedy_np[slot, n - 1])
+                        if tok < 0:
+                            finished[slot] = "failed"
+                            continue
+                    self._append_token(req, tok, wall)
+                    if req.first_token_at is None:
+                        req.first_token_at = self.now
+                    req.transition(RequestState.DECODE)
+                    self.last_tok[slot] = tok
+                    n_committed += 1
+                    if drafter is not None:
+                        drafter.on_admit(slot, req)
+                    reason = self.engine._finished(req, tok)
+                    if reason is not None:
+                        finished[slot] = reason
+                    continue
+                d = drafts[slot]
+                # greedy accept: drafts match the target's argmax stream up
+                # to the first miss; the miss position's argmax is the
+                # bonus token
+                m = 1
+                while m <= len(d) and greedy_np[slot, m - 1] == d[m - 1]:
+                    m += 1
+                self.n_drafted += len(d)
+                self.n_accepted += m - 1
+                appended = 0
+                for j in range(m):
+                    if req.replay:
+                        # replay equals the greedy stream (token identity
+                        # holds across preemption under speculation too)
+                        tok = req.replay.pop(0)
+                    else:
+                        tok = int(greedy_np[slot, j])
+                        if tok < 0:
+                            # non-finite logits: fail this slot at the
+                            # poisoned position, keep the prefix
+                            finished[slot] = "failed"
+                            break
+                    self._append_token(req, tok, wall)
+                    self.last_tok[slot] = tok
+                    appended += 1
+                    reason = self.engine._finished(req, tok)
+                    if reason is not None:
+                        finished[slot] = reason
+                        break
+                commits[slot] = appended
+                n_committed += appended
+        commit_s = time.perf_counter() - t_commit
+        # commit the positions, then roll the paged store's speculative
+        # tail blocks back BEFORE any slot is freed (free() releases whole
+        # tables; release_tail only ever touches private draft-span blocks)
+        self.cm.advance(slots, [commits[s] for s in slots])
+        t_rb = time.perf_counter()
+        if self.paged:
+            with self.tel.span("rollback", n_slots=len(slots)):
+                for slot in slots:
+                    self.cm.release_tail(slot)
+        rollback_s = time.perf_counter() - t_rb
+        self.sched.observe_decode_step(n_committed=n_committed)
+        occupancy = self.cm.n_active / self.cm.n_slots
+        divergence = int(self.cm.divergence())
+        self.peak_active = max(self.peak_active, len(slots))
+        self.now += 1.0
+        for slot in slots:
+            if slot in finished:
+                req = self._evict(slot)
+                req.finish(self.now, finished[slot])
+            elif drafter is not None and slot not in chunk_now:
+                # chunk slots have no drafter state to rewind: mid-chunk
+                # ones were never admitted into it, just-completed ones had
+                # on_admit called this step with the cache at commit length
+                drafter.observe_commit(slot, int(self.cm.lengths[slot]))
+        h2d, d2h = self._byte_deltas()
+        self._emit("verify", step=int(self.sched.n_decode_steps),
+                   wall_s=time.perf_counter() - t_start,
+                   phases={"draft_s": draft_s, "prepare_s": prepare_s,
+                           "dispatch_s": dispatch_s, "commit_s": commit_s,
+                           "rollback_s": rollback_s},
+                   active_slots=int(len(slots)), n_slots=int(self.n_slots),
+                   occupancy=occupancy, divergence=divergence,
+                   committed_tokens=int(n_committed),
+                   chunk_tokens=int(n_chunk_fed),
+                   drafted_tokens=int(self.n_drafted - drafted0),
+                   accepted_tokens=int(self.n_accepted - accepted0),
                    h2d_bytes=h2d, d2h_bytes=d2h,
                    **self._pool_gauges())
 
@@ -685,7 +962,8 @@ class ServeLoop:
                        itl_wall_s=[b - a for a, b in zip(wt, wt[1:])])
 
     def _step(self):
-        """One loop iteration: admissions, then one batched decode."""
+        """One loop iteration: admissions, then one batched decode (or one
+        verify step, while a drafter or a chunked prefill needs it)."""
         groups = self.sched.plan_admissions()
         for gi, group in enumerate(groups):
             self.admit(group, new_sync=(gi == 0))
@@ -695,11 +973,14 @@ class ServeLoop:
                 self.now = max(self.now, self.arrivals[0].arrival_time)
                 self.submit_arrivals()
             return
-        t_prep = time.perf_counter()
-        slots = self.writable_slots()
-        prepare_s = time.perf_counter() - t_prep
-        if slots:
-            self.decode_once(slots, prepare_s=prepare_s)
+        if self.drafter is not None or self.chunking:
+            self.decode_once_spec()
+        else:
+            t_prep = time.perf_counter()
+            slots = self.writable_slots()
+            prepare_s = time.perf_counter() - t_prep
+            if slots:
+                self.decode_once(slots, prepare_s=prepare_s)
         self.submit_arrivals()
 
     def report(self) -> ServeReport:
@@ -751,6 +1032,10 @@ class ServeLoop:
             cow_blocks=s.cow_blocks,
             peak_blocks_in_use=s.peak_blocks_in_use,
             peak_active_slots=s.peak_active_slots,
+            draft=self.serve_cfg.draft,
+            drafted_tokens=s.drafted_tokens,
+            accepted_tokens=s.accepted_tokens,
+            chunk_tokens=s.chunk_tokens,
             committed_tokens_per_step=s.committed_tokens_per_step,
             ttft_wall=percentiles([ttft_wall(r) for r in self.requests]),
             itl_wall=percentiles(itl),
@@ -765,12 +1050,15 @@ class ServeLoop:
 class ServingEngine:
     def __init__(self, arch_cfg, params,
                  serve_cfg: Optional[ServeConfig] = None,
-                 executor: Optional[SingleDeviceExecutor] = None, *,
-                 device="cuda"):
+                 executor: Optional[SingleDeviceExecutor] = None,
+                 draft_cfg=None, draft_params=None, *, device="cuda"):
         """Build the engine on ``device`` (default the GPU; raises when
         CUDA is absent unless ``device="cpu"``).  ``params`` must already
         lie on that device.  In a bp_* mode every dense weight is quantized
-        to int8 once, here (already-int8 weights pass through)."""
+        to int8 once, here (already-int8 weights pass through).
+        ``draft_cfg``/``draft_params``: a same-family draft model for
+        ``ServeConfig.draft == "model"``, run by a draft executor on the
+        engine's device."""
         self.cfg = arch_cfg
         self.serve_cfg = ServeConfig() if serve_cfg is None else serve_cfg
         check_family(arch_cfg, self.serve_cfg)
@@ -785,6 +1073,16 @@ class ServingEngine:
         self.executor = executor
         self.device = executor.device
         self.matmul_backend = executor.matmul_backend
+        self.draft_cfg = draft_cfg
+        self.draft_executor: Optional[SingleDeviceExecutor] = None
+        if draft_cfg is not None:
+            if draft_params is None:
+                raise ValueError("draft_cfg given without draft_params")
+            if draft_cfg.matmul_mode in ("bp_exact", "bp_approx"):
+                with torch.no_grad():
+                    draft_params = quantize_dense_params(draft_params)
+            self.draft_executor = make_executor(draft_cfg, draft_params,
+                                                device=self.device)
         # request ids queued for cancellation (drained by the loop's sweep)
         self._pending_cancels: Set[int] = set()
 

@@ -128,6 +128,32 @@ class SingleDeviceExecutor:
 
         return fn
 
+    def verify_sample_fn(self, paged: bool = False):
+        """``fn(cache, step) -> (greedy (B, S) int32 tokens on the device,
+        cache)`` for the multi-token verify step (speculation and chunked
+        prefill): ONE forward appends the S fed tokens at per-slot
+        positions, and the per-position argmax runs on the device, so only
+        the (B, S) grid needs to cross to the host, never the (B, S, V)
+        logits.  A (slot, position) whose logits are not all finite gives
+        -1.  ``step`` is as for :meth:`decode_sample_fn`, with ``tokens``
+        (B, S)."""
+        self._require_params()
+        verify = api.verify_step_paged if paged else api.verify_step
+
+        @torch.no_grad()
+        def fn(cache, step):
+            b = {"tokens": self.put(step["tokens"], torch.long),
+                 "cache_len": self.put(step["cache_len"], torch.long),
+                 "cache": cache}
+            if paged:
+                b["block_tables"] = step["block_tables"]
+            logits, cache = verify(self._params, self.cfg, b)
+            B, S, V = logits.shape
+            tok = sample_tokens(logits.reshape(B * S, V), 0.0)
+            return tok.reshape(B, S), cache
+
+        return fn
+
     def decode_scan_fn(self, chunk: int, temperature: float,
                        eos_id: Optional[int]):
         """``fn(tok, cache, done, seed, pos0, i0) -> (tok, cache, done,

@@ -84,19 +84,24 @@ NULL_TELEMETRY = Telemetry()
 @dataclasses.dataclass
 class StreamSummary:
     """Aggregates of one serve call's step-record stream (the ported record
-    kinds: prefill, decode, preempt, reject, cancel, timeout, request)."""
+    kinds: prefill, decode, verify, preempt, reject, cancel, timeout,
+    request)."""
 
     prefill_s: float = 0.0            # sum of prefill dispatch walls
-    decode_s: float = 0.0             # sum of decode dispatch walls
-    steps: int = 0                    # decode records
+    decode_s: float = 0.0             # sum of decode/verify dispatch walls
+    steps: int = 0                    # decode + verify records
     n_syncs: int = 0                  # prefill records opening a sync
     total_new_tokens: int = 0         # emitted - discarded-at-preemption
-    committed_decode_tokens: int = 0  # decode commits only
+    committed_decode_tokens: int = 0  # decode/verify commits only
     slot_utilization: float = 0.0
     committed_tokens_per_step: float = 0.0
     max_divergence: int = 0
     n_preemptions: int = 0
     n_rejected: int = 0
+    drafted_tokens: int = 0           # drafts submitted to verify steps
+    accepted_tokens: int = 0          # drafts the target's argmax confirmed
+    # prompt tokens a chunked prefill fed through verify steps
+    chunk_tokens: int = 0
     peak_active_slots: int = 0
     prefix_hit_blocks: int = 0
     cow_blocks: int = 0
@@ -127,7 +132,7 @@ def reduce_stream(records) -> StreamSummary:
             if r["new_sync"]:
                 s.n_syncs += 1
             emitted += r["committed_tokens"]
-        elif kind == "decode":
+        elif kind in ("decode", "verify"):
             s.steps += 1
             s.decode_s += r["phases"]["dispatch_s"]
             occupancy_sum += r["occupancy"]
@@ -136,6 +141,10 @@ def reduce_stream(records) -> StreamSummary:
             s.max_divergence = max(s.max_divergence, int(r["divergence"]))
             s.peak_active_slots = max(s.peak_active_slots,
                                       int(r["active_slots"]))
+            if kind == "verify":
+                s.drafted_tokens += int(r["drafted_tokens"])
+                s.accepted_tokens += int(r["accepted_tokens"])
+                s.chunk_tokens += int(r["chunk_tokens"])
         elif kind == "preempt":
             s.n_preemptions += 1
             discarded += int(r["discarded_tokens"])

@@ -8,7 +8,8 @@ refuses what it does not implement yet.
     absent, instead of running on the CPU unasked;
   * every ``ServeConfig`` feature that is not ported raises
     ``NotImplementedError`` when the engine is built, and what is ported
-    (the paged store) builds and serves on the CPU;
+    (the paged store, speculative decoding, chunked prefill) builds and
+    serves on the CPU;
   * the kernel wrappers refuse what their kernels do not take instead of
     falling back;
   * ``chip_smoke.py`` exits nonzero and prints no result without a GPU or
@@ -117,20 +118,35 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     assert engine.device.type == "cpu"
 
 
-@pytest.mark.parametrize("field,value", [
-    ("draft", "prompt_lookup"),
-    ("draft", "model"),
-    ("prefill_chunk", 16),
-    ("mesh_shape", (1, 2)),
-    ("probe", object()),
-    ("faults", object()),
+@pytest.mark.parametrize("field,value,outcome", [
+    ("draft", "prompt_lookup", "serves"),
+    ("draft", "model", "needs a draft model"),
+    ("prefill_chunk", 16, "serves"),
+    ("mesh_shape", (1, 2), "not ported"),
+    ("probe", object(), "not ported"),
+    ("faults", object(), "not ported"),
 ])
-def test_unported_serve_features_raise(field, value):
+def test_serve_features_build_or_raise(field, value, outcome):
     cfg = _small_cfg(matmul_mode="bp_exact", kv_cache_int8=True)
     params = api.init(cfg, device="cpu")
-    scfg = serving.ServeConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serving.ServingEngine(cfg, params, scfg, device="cpu")
+    scfg = serving.ServeConfig(max_new_tokens=3, **{field: value})
+    if outcome == "not ported":
+        with pytest.raises(NotImplementedError, match=outcome):
+            serving.ServingEngine(cfg, params, scfg, device="cpu")
+        return
+    engine = serving.ServingEngine(cfg, params, scfg, device="cpu")
+    # two 20-token prompts: longer than the 16-token chunk
+    reqs = [serving.Request(prompt=torch.arange(2, 22, dtype=torch.int32)
+                            .numpy() + i, max_new_tokens=3)
+            for i in range(2)]
+    if outcome != "serves":
+        with pytest.raises(ValueError, match=outcome):
+            engine.serve(reqs, n_slots=2)
+        return
+    rep = engine.serve(reqs, n_slots=2)
+    assert [len(r.tokens) for r in rep.results] == [3, 3]
+    assert rep.draft == scfg.draft
+    assert rep.chunk_tokens == (8 if field == "prefill_chunk" else 0)
 
 
 @pytest.mark.parametrize("int8kv", [False, True], ids=["bf16kv", "int8kv"])
