@@ -90,6 +90,23 @@ are missing.  Phases, one JSON line each:
                one-shot tokens and a plain-version chunked serve's except
                for near-tie flips, each reported; reports chunk tokens,
                preemptions and TTFT per request beside ``serve_paged``'s;
+  serve_probe  the hardware-cost probe on the paged main path: the
+               ``serve_paged`` workload and pool with
+               ``SparsityProbe(probe_every=1)`` and a ``Telemetry`` writing
+               the metrics JSONL and the Chrome trace.  Tokens and K1's
+               (per route) and K2's launches must equal ``serve_paged``'s
+               exactly (the probe's reductions are plain PyTorch
+               operations, no kernel); one ``hw_estimate`` record per
+               prefill and per step; every record must carry the golden
+               schema's keys, the report must equal the fold of the written
+               file, the trace's spans must nest, every rate must lie in
+               [0, 1].  Prints the measured activation and weight bit and
+               value sparsity, the modeled cycles per MAC and energy of the
+               four methods, the array utilization, the cost hint, the
+               step p50/p90 beside ``serve_paged``'s, and the host time of
+               a fold, of ``deployment_estimate`` and of the weight
+               profile.  A one-request serve with ``profile_dir`` must
+               write a ``torch.profiler`` trace naming K1's kernel;
   serve_rwkv   the third main path, after the qwen2 weights are freed:
                full-width, full-depth rwkv6-7b (random weights from a seed)
                in bp_exact on the slab store, greedy; prompts of 64-256
@@ -1757,6 +1774,236 @@ def phase_serve_chunked(torch, gpu, model, base, base_toks, n_requests=8,
     return result, launches
 
 
+def _check_nesting(spans):
+    """Every Chrome-trace span lies inside each span it overlaps (one host
+    thread): the ``Tracer``'s nesting property, on the written file."""
+    spans = sorted(spans, key=lambda e: (e["ts"], -e["dur"]))
+    for i, a in enumerate(spans):
+        for b in spans[i + 1:]:
+            if b["ts"] >= a["ts"] + a["dur"]:
+                break
+            if b["ts"] + b["dur"] > a["ts"] + a["dur"] + 1e-3:
+                return f"{b['name']} at {b['ts']} leaves {a['name']}"
+    return None
+
+
+def phase_serve_probe(torch, gpu, model, base, base_toks, base_launches,
+                      n_requests=8, n_slots=4, lead_window=4, block_size=16,
+                      num_blocks=PAGED_NUM_BLOCKS):
+    """The paged main path with the hardware-cost probe on: the
+    ``serve_paged`` workload and pool, ``SparsityProbe(probe_every=1)``
+    and a ``Telemetry`` writing the metrics JSONL and the Chrome trace.
+    Every admission prefill and every decode step runs its probed variant
+    (the stats reductions are plain PyTorch operations beside K1 and K2),
+    and each sample is priced through the paper's cost models into an
+    ``hw_estimate`` record.  Then a one-request serve with ``profile_dir``
+    writes a ``torch.profiler`` trace."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import serving
+    from repro_torch.serving.telemetry import STEP_SCHEMA
+
+    cfg = model["cfg"].replace(kv_cache_int8=False)
+    t_phase, marks = time.perf_counter(), {}
+    probe = serving.SparsityProbe(probe_every=1)
+    t0 = time.perf_counter()
+    engine = serving.ServingEngine(
+        cfg, model["params"], serving.ServeConfig(
+            max_new_tokens=32, temperature=0.0, cache_backend="paged",
+            block_size=block_size, probe=probe), device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0          # the weight profile inside
+    t0 = time.perf_counter()
+    deployment = engine.deployment_estimate()
+    deployment_s = time.perf_counter() - t0
+    marks["engine"] = time.perf_counter()
+    # the host time of every fold (a sampled step's pricing)
+    fold_s = []
+    fold = probe.fold
+
+    def timed_fold(*a, **kw):
+        t = time.perf_counter()
+        out = fold(*a, **kw)
+        fold_s.append(time.perf_counter() - t)
+        return out
+
+    probe.fold = timed_fold
+    prompts = _paged_requests(serving, np.random.default_rng(1),
+                              cfg.vocab_size, n_requests)
+    cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
+    kw = dict(n_slots=n_slots, cache_T=cache_T, num_blocks=num_blocks,
+              sched_cfg=serving.SchedulerConfig(lead_window=lead_window))
+    # warm-up serve (allocator; builds the probe's cycle tables): not
+    # measured
+    engine.serve(_copies(serving, prompts[:2], 8), **kw)
+    torch.cuda.synchronize()
+    cold_fold_s = fold_s[0]
+    fold_s.clear()
+    marks["warm_up"] = time.perf_counter()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        tel = serving.Telemetry(metrics_path=str(tmp / "metrics.jsonl"),
+                                trace_path=str(tmp / "trace.json"))
+        engine.serve_cfg = dataclasses.replace(engine.serve_cfg,
+                                               telemetry=tel)
+        # -- the measured main-path run: counts zeroed just before, read
+        # after
+        reset_counts()
+        loop = engine.make_loop(_copies(serving, prompts), **kw)
+        report = loop.run()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        tel.close()
+        marks["main"] = time.perf_counter()
+        records = serving.read_jsonl(str(tmp / "metrics.jsonl"))
+        trace = json.loads((tmp / "trace.json").read_text())
+        t0 = time.perf_counter()
+        folded = serving.reduce_stream(records)
+        reduce_s = time.perf_counter() - t0
+
+        # -- one request under torch.profiler, through profile_dir
+        prof_tel = serving.Telemetry(profile_dir=str(tmp / "prof"),
+                                     annotate_device=True)
+        engine.serve_cfg = dataclasses.replace(engine.serve_cfg,
+                                               telemetry=prof_tel)
+        # one prefill (K1's tiles) and one decode step (its GEMV)
+        engine.serve(_copies(serving, prompts[:1], 2), **kw)
+        reset_counts()
+        prof_names = set()
+        for path in prof_tel.profile_paths:
+            prof_names |= {str(e.get("name", "")) for e in
+                           json.loads(pathlib.Path(path).read_text())
+                           ["traceEvents"]}
+        marks["profile_dir"] = time.perf_counter()
+
+    toks = {r.request_id: r.tokens.tolist() for r in report.results}
+    kinds = [r["kind"] for r in loop.stream]
+    hw = [r for r in loop.stream if r["kind"] == "hw_estimate"]
+    n_prefill = kinds.count("prefill")
+    step_ms = [1e3 * r["wall_s"] for r in loop.stream
+               if r["kind"] == "decode"]
+    # the probe's only device-to-host traffic: one (L, 3) float32 array
+    # per sample (qwen2 ties its lm head: no tail row)
+    probe_d2h = len(hw) * cfg.num_layers * 3 * 4
+    hwm, prof = report.hw_measured, engine.weight_sparsity_profile()
+    fold_hw = {"n_samples": folded.n_hw_samples,
+               "probe_every": probe.probe_every,
+               "act_bit_sparsity": folded.hw_act_bit_sparsity
+               / max(folded.n_hw_samples, 1),
+               "act_value_sparsity": folded.hw_act_value_sparsity
+               / max(folded.n_hw_samples, 1),
+               "weight_bit_sparsity": folded.hw_weight_bit_sparsity
+               / max(folded.n_hw_samples, 1),
+               "array_utilization": folded.hw_array_utilization
+               / max(folded.n_hw_samples, 1),
+               "cycles": {k: v / max(folded.n_hw_samples, 1)
+                          for k, v in folded.hw_cycles.items()},
+               "mac_energy_pj": {k: v / max(folded.n_hw_samples, 1)
+                                 for k, v in folded.hw_mac_energy_pj.items()}}
+    fold_equal = (fold_hw == hwm and all(
+        getattr(report, f) == getattr(folded, f)
+        for f in ("prefill_s", "decode_s", "steps", "n_syncs",
+                  "total_new_tokens", "slot_utilization", "max_divergence",
+                  "n_preemptions", "prefix_hit_blocks", "cow_blocks",
+                  "peak_blocks_in_use", "n_degrades")))
+    bad_schema = [r["kind"] for r in records
+                  if not STEP_SCHEMA.get(r["kind"], set()) <= set(r)]
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    nesting = _check_nesting(spans)
+    rates = {"act_bit_sparsity": hwm["act_bit_sparsity"],
+             "act_value_sparsity": hwm["act_value_sparsity"],
+             "weight_bit_sparsity": hwm["weight_bit_sparsity"],
+             "weight_value_sparsity": prof["value_sparsity"],
+             "array_utilization": hwm["array_utilization"],
+             "deployment_mean_bit_sparsity": deployment["mean_bit_sparsity"]}
+    k1_in_profile = sorted({n for n in prof_names for sym in
+                            KERNEL_SYMBOLS["bp_matmul_gemv"]
+                            + KERNEL_SYMBOLS["bp_matmul_tile"]
+                            if sym in n})
+    p = serving.percentiles(step_ms, qs=(50, 90))
+    pf = serving.percentiles(fold_s, qs=(50, 90))
+    compared = ("bp_matmul", "bp_matmul_gemv", "bp_matmul_tile",
+                "paged_attention")
+    marks["checks"] = time.perf_counter()
+    result = {
+        "phase": "serve_probe", "gpu": gpu, "model": cfg.name,
+        "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "mode": cfg.matmul_mode, "kv_cache_int8": cfg.kv_cache_int8,
+        "cache_backend": "paged", "block_size": block_size,
+        "num_blocks": num_blocks, "n_requests": n_requests,
+        "n_slots": n_slots, "probe_every": probe.probe_every,
+        "prefill_calls": n_prefill, "decode_steps": report.steps,
+        "hw_estimate_records": len(hw),
+        "launches": launches,
+        "serve_paged_launches": {k: base_launches[k] for k in compared},
+        "tokens_equal_serve_paged": toks == base_toks,
+        "measured_sparsity": rates,
+        "per_layer_act_bit_sparsity_first_prefill":
+            hw[0]["per_layer_act_bit_sparsity"] if hw else None,
+        "weight_per_layer_bit_sparsity": prof["per_layer_bit_sparsity"],
+        "modeled_cycles_per_mac": hwm["cycles"],
+        "modeled_mac_energy_pj": hwm["mac_energy_pj"],
+        "deployment": {k: deployment[k] for k in (
+            "mode", "mean_bit_sparsity", "mean_cycles_per_mac",
+            "mean_mac_energy_pj")},
+        "array_utilization": hwm["array_utilization"],
+        "cost_hint_cycles_per_token": loop.cost_hint_cycles_per_token,
+        "decode_step_ms_p50": p["p50"] if p else None,
+        "decode_step_ms_p90": p["p90"] if p else None,
+        "serve_paged_decode_step_ms_p50": base["decode_step_ms_p50"],
+        "serve_paged_decode_step_ms_p90": base["decode_step_ms_p90"],
+        "decode_tokens_per_s": report.decode_tokens_per_s,
+        "serve_paged_decode_tokens_per_s": base["decode_tokens_per_s"],
+        "fold_ms_p50": 1e3 * pf["p50"] if pf else None,
+        "fold_ms_p90": 1e3 * pf["p90"] if pf else None,
+        "first_fold_s": cold_fold_s,
+        "deployment_estimate_s": deployment_s,
+        "engine_build_s": build_s,
+        "reduce_stream_ms": 1e3 * reduce_s,
+        "d2h_bytes": folded.d2h_bytes,
+        "probe_d2h_bytes": probe_d2h,
+        "records": len(records), "trace_spans": len(spans),
+        "report_equals_file_fold": fold_equal,
+        "k1_kernels_in_profile": k1_in_profile,
+        "profile_files": len(prof_tel.profile_paths),
+        "phase_wall_s": _spans(marks, t_phase),
+        "phase_total_s": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    check(toks == base_toks, "the probed serve's tokens differ from "
+                             "serve_paged's")
+    for name in compared:
+        check(launches[name] == base_launches[name],
+              f"{name} launched {launches[name]} times in the probed serve, "
+              f"{base_launches[name]} in serve_paged")
+    check(launches["routed_plain_int8_kv"] == 0,
+          "paged attention was routed to the plain version")
+    check(len(hw) == n_prefill + report.steps,
+          f"{len(hw)} hw_estimate records for {n_prefill} prefills and "
+          f"{report.steps} steps")
+    check(not bad_schema, f"records miss schema keys: {bad_schema}")
+    check(records == loop.stream, "the metrics file differs from the "
+                                  "live records")
+    check(fold_equal, "the report differs from the fold of the written "
+                      "JSONL")
+    check(nesting is None and spans, f"trace spans do not nest: {nesting}")
+    check(report.deployment is not None and hwm is not None,
+          "deployment or hw_measured missing from the report")
+    check(all(0.0 <= v <= 1.0 for v in rates.values()),
+          f"a rate lies outside [0, 1]: {rates}")
+    check(all(0.0 <= e["bit_sparsity"] <= 1.0
+              for e in deployment["per_layer"]),
+          "a layer's weight bit sparsity lies outside [0, 1]")
+    check(loop.cost_hint_cycles_per_token > 0, "no cost hint")
+    check(bool(k1_in_profile), "K1's kernel is missing from the "
+                               "torch.profiler trace")
+    return result, launches
+
+
 def build_rwkv(torch):
     """Full-width, full-depth rwkv6-7b in bp_exact: random weights from
     seed 0, every dense weight quantized to int8 once.  Peak device memory
@@ -2420,6 +2667,9 @@ def main() -> int:
         chunked, chunked_launches = phase_serve_chunked(
             torch, gpu, model, paged, paged_toks)
         records.append({"serve_chunked": chunked})
+        probed, probe_launches = phase_serve_probe(
+            torch, gpu, model, paged, paged_toks, paged_launches)
+        records.append({"serve_probe": probed})
         del model
         rwkv = build_rwkv(torch)
         serve_rwkv, rwkv_launches, rwkv_shape = phase_serve_rwkv(
@@ -2434,6 +2684,7 @@ def main() -> int:
         paths = {"serve": launches, "serve_paged": paged_launches,
                  "serve_spec": spec_launches,
                  "serve_chunked": chunked_launches,
+                 "serve_probe": probe_launches,
                  "serve_rwkv": rwkv_launches}
         pa = paged_layer_summary(torch, flush, paged_shape, paged_launches)
         for entry, key in ((bp, "bp_matmul_gemv"), (tile, "bp_matmul_tile"),

@@ -7,6 +7,10 @@
 
     decode_step_paged / verify_step_paged(params, cfg, batch) -> ...
 
+    prefill_probed / decode_step_probed / decode_step_paged_probed /
+    verify_step_probed / verify_step_paged_probed -> (..., stats)
+
+
 plus the slab and block-paged cache helpers the serving engine uses.  The
 dense family (``causal_lm``) has every entry point; the RWKV-6 family
 (``ssm``, ``rwkv_model``) has the slab ones only and raises, as the
@@ -20,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.probe import StatsCollector, probe_supported
 from repro_torch.device import resolve_device
 from repro_torch.models import causal_lm, layers, rwkv_model
 
@@ -111,6 +116,51 @@ def verify_step_paged(params, cfg, batch):
     """Block-paged multi-token verify (``batch`` carries
     ``block_tables``); see :func:`verify_step`."""
     return verify_module(cfg, "verify_step_paged")(params, cfg, batch)
+
+
+# ---------------------------------------------------------------------------
+# Probed entry points: the same forward with a stats collector passed down
+# the layer loop; each also returns the (L[+1], N_STATS) float32 activation
+# stats (``core/probe.py``).
+# ---------------------------------------------------------------------------
+
+def _probed(entry, params, cfg, batch, *args, **kw):
+    if not probe_supported(cfg):
+        raise ValueError(
+            f"sparsity probe unsupported for family={cfg.family!r} "
+            f"matmul_mode={cfg.matmul_mode!r}: the probe taps int8 operands "
+            f"at the quantized-matmul boundary (causal-LM family + "
+            f"bp_exact/bp_approx mode)")
+    probe = StatsCollector()
+    out = entry(params, cfg, batch, *args, probe=probe, **kw)
+    return (*out, probe.collect())
+
+
+def prefill_probed(params, cfg, batch, cache_T: int, prompt_lens=None):
+    """:func:`prefill` -> (logits, cache, stats)."""
+    return _probed(_module(cfg).prefill, params, cfg, batch, cache_T,
+                   prompt_lens=prompt_lens)
+
+
+def decode_step_probed(params, cfg, batch):
+    """:func:`decode_step` -> (logits, cache, stats)."""
+    return _probed(_module(cfg).decode_step, params, cfg, batch)
+
+
+def decode_step_paged_probed(params, cfg, batch):
+    """:func:`decode_step_paged` -> (logits, cache, stats)."""
+    return _probed(_module(cfg).decode_step_paged, params, cfg, batch)
+
+
+def verify_step_probed(params, cfg, batch):
+    """:func:`verify_step` -> (logits (B, S, V), cache, stats)."""
+    return _probed(verify_module(cfg), params, cfg, batch)
+
+
+def verify_step_paged_probed(params, cfg, batch):
+    """:func:`verify_step_paged` -> (logits (B, S, V), cache, stats)."""
+    return _probed(verify_module(cfg, "verify_step_paged"), params, cfg,
+                   batch)
 
 
 def cache_specs(cfg, B: int, cache_T: int

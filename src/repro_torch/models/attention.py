@@ -32,16 +32,16 @@ def init_attention(gen, cfg, lead=(), device=None):
     }
 
 
-def qkv_proj(params, x: torch.Tensor, cfg, mode: str):
+def qkv_proj(params, x: torch.Tensor, cfg, mode: str, probe=None):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     be = cfg.matmul_backend
-    q = layers.dense(params["wq"], x, mode, be).reshape(B, S, cfg.num_heads,
-                                                        hd)
-    k = layers.dense(params["wk"], x, mode, be).reshape(B, S,
-                                                        cfg.num_kv_heads, hd)
-    v = layers.dense(params["wv"], x, mode, be).reshape(B, S,
-                                                        cfg.num_kv_heads, hd)
+    q = layers.dense(params["wq"], x, mode, be, probe).reshape(
+        B, S, cfg.num_heads, hd)
+    k = layers.dense(params["wk"], x, mode, be, probe).reshape(
+        B, S, cfg.num_kv_heads, hd)
+    v = layers.dense(params["wv"], x, mode, be, probe).reshape(
+        B, S, cfg.num_kv_heads, hd)
     return q, k, v
 
 
@@ -235,13 +235,14 @@ def quantize_kv(k: torch.Tensor, v: torch.Tensor):
 
 
 def attention_block(params, x: torch.Tensor, cfg, mode: str, *, cos, sin,
-                    causal: bool = True):
+                    causal: bool = True, probe=None):
     """Attention sub-block for prefill; returns (out, (k, v))."""
     B, S, _ = x.shape
-    q, k, v = qkv_proj(params, x, cfg, mode)
+    q, k, v = qkv_proj(params, x, cfg, mode, probe)
     if cos is not None:
         q = layers.apply_rope(q, cos, sin)
         k = layers.apply_rope(k, cos, sin)
     out = flash_attention(q, k, v, causal=causal)
     out = out.reshape(B, S, cfg.num_heads * cfg.resolved_head_dim)
-    return layers.dense(params["wo"], out, mode, cfg.matmul_backend), (k, v)
+    return (layers.dense(params["wo"], out, mode, cfg.matmul_backend, probe),
+            (k, v))

@@ -57,13 +57,14 @@ def _angles(cfg, positions: torch.Tensor):
                               cfg.rope_theta)
 
 
-def _block(lp, x, cfg, mode, cos, sin):
+def _block(lp, x, cfg, mode, cos, sin, probe=None):
     h = layers.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
     attn_out, kv = attention.attention_block(lp["attn"], h, cfg, mode,
-                                             cos=cos, sin=sin)
+                                             cos=cos, sin=sin, probe=probe)
     x = x + attn_out
     h = layers.rms_norm(lp["ffn_norm"], x, cfg.norm_eps)
-    x = x + layers.ffn(lp["ffn"], h, cfg.ffn_type, mode, cfg.matmul_backend)
+    x = x + layers.ffn(lp["ffn"], h, cfg.ffn_type, mode, cfg.matmul_backend,
+                       probe)
     return x, kv
 
 
@@ -84,8 +85,10 @@ def zeros_cache(cfg, B: int, cache_T: int, device):
 
 
 def forward(params, cfg, batch, *, return_cache: bool = False,
-            cache_T: Optional[int] = None):
-    """Returns (hidden (B,S,D), cache|None)."""
+            cache_T: Optional[int] = None, probe=None):
+    """Returns (hidden (B,S,D), cache|None).  ``probe``: a
+    ``core.probe.StatsCollector`` drained once per layer (None records
+    nothing)."""
     mode = cfg.matmul_mode
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -98,8 +101,13 @@ def forward(params, cfg, batch, *, return_cache: bool = False,
     cache = None
     if return_cache:
         cache = zeros_cache(cfg, B, max(cache_T or S, S), dev)
+    if probe is not None:
+        probe.absorb_pending()
     for l in range(cfg.num_layers):
-        x, (k, v) = _block(layer_params(params, l), x, cfg, mode, cos, sin)
+        x, (k, v) = _block(layer_params(params, l), x, cfg, mode, cos, sin,
+                           probe)
+        if probe is not None:
+            probe.drain_layer()
         if return_cache:
             if cfg.kv_cache_int8:
                 k, ks_, v, vs_ = attention.quantize_kv(k, v)
@@ -111,30 +119,34 @@ def forward(params, cfg, batch, *, return_cache: bool = False,
     return x, cache
 
 
-def logits_from_hidden(params, cfg, x: torch.Tensor) -> torch.Tensor:
+def logits_from_hidden(params, cfg, x: torch.Tensor,
+                       probe=None) -> torch.Tensor:
     if cfg.tie_embeddings:
         return layers.unembed(params["embed"], x)
     return layers.dense(params["lm_head"], x, cfg.matmul_mode,
-                        cfg.matmul_backend)
+                        cfg.matmul_backend, probe)
 
 
-def prefill(params, cfg, batch, cache_T: int, prompt_lens=None):
+def prefill(params, cfg, batch, cache_T: int, prompt_lens=None,
+            probe=None):
     """Run the prompt, return (last-position logits (B, V), KV cache padded
     to cache_T).  ``prompt_lens`` (B,) gathers each row's logits at its own
     last valid position (ragged right-padded batches)."""
-    x, cache = forward(params, cfg, batch, return_cache=True, cache_T=cache_T)
+    x, cache = forward(params, cfg, batch, return_cache=True, cache_T=cache_T,
+                       probe=probe)
     if prompt_lens is None:
         last = x[:, -1:, :]
     else:
         idx = torch.as_tensor(prompt_lens, device=x.device).long() - 1
         last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-    logits = logits_from_hidden(params, cfg, last)[:, 0]
+    logits = logits_from_hidden(params, cfg, last, probe)[:, 0]
     return logits, cache
 
 
-def _decode_common(params, cfg, batch, *, write_fn, attend_fn):
+def _decode_common(params, cfg, batch, *, write_fn, attend_fn, probe=None):
     """Shared decode/verify body over S >= 1 appended tokens.  Returns
-    (logits (B, S, V), cache) with the cache updated in place."""
+    (logits (B, S, V), cache) with the cache updated in place; ``probe`` as
+    for :func:`forward`."""
     mode = cfg.matmul_mode
     tokens, cache = batch["tokens"], batch["cache"]
     B, S = tokens.shape
@@ -144,10 +156,12 @@ def _decode_common(params, cfg, batch, *, write_fn, attend_fn):
     cos, sin = _angles(cfg, pos)
     hd = cfg.resolved_head_dim
     int8kv = cfg.kv_cache_int8
+    if probe is not None:
+        probe.absorb_pending()
     for l in range(cfg.num_layers):
         lp = layer_params(params, l)
         h = layers.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        q, k, v = attention.qkv_proj(lp["attn"], h, cfg, mode)
+        q, k, v = attention.qkv_proj(lp["attn"], h, cfg, mode, probe)
         q = layers.apply_rope(q, cos, sin)
         k = layers.apply_rope(k, cos, sin)
         ksc = vsc = None
@@ -159,12 +173,15 @@ def _decode_common(params, cfg, batch, *, write_fn, attend_fn):
         vc = write_fn(cache["v"][l], v)
         out = attend_fn(q, kc, vc, ksc, vsc).reshape(B, S,
                                                       cfg.num_heads * hd)
-        x = x + layers.dense(lp["attn"]["wo"], out, mode, cfg.matmul_backend)
+        x = x + layers.dense(lp["attn"]["wo"], out, mode, cfg.matmul_backend,
+                             probe)
         h = layers.rms_norm(lp["ffn_norm"], x, cfg.norm_eps)
         x = x + layers.ffn(lp["ffn"], h, cfg.ffn_type, mode,
-                           cfg.matmul_backend)
+                           cfg.matmul_backend, probe)
+        if probe is not None:
+            probe.drain_layer()
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return logits_from_hidden(params, cfg, x), cache
+    return logits_from_hidden(params, cfg, x, probe), cache
 
 
 def _slab_fns(batch):
@@ -215,25 +232,25 @@ def _paged_fns(cfg, batch):
     return write_fn, attend_fn
 
 
-def decode_step(params, cfg, batch):
+def decode_step(params, cfg, batch, probe=None):
     """One-token decode.  batch: tokens (B,1), cache (slab, updated in
     place), cache_len: int (whole batch at one depth) or (B,) tensor.
     Returns (logits (B,V), cache)."""
     write_fn, attend_fn = _slab_fns(batch)
     logits, cache = _decode_common(params, cfg, batch, write_fn=write_fn,
-                                   attend_fn=attend_fn)
+                                   attend_fn=attend_fn, probe=probe)
     return logits[:, 0], cache
 
 
-def verify_step(params, cfg, batch):
+def verify_step(params, cfg, batch, probe=None):
     """Multi-token append at per-slot positions ``cache_len ..
     cache_len + S - 1`` in one pass.  Returns (logits (B, S, V), cache)."""
     write_fn, attend_fn = _slab_fns(batch)
     return _decode_common(params, cfg, batch, write_fn=write_fn,
-                          attend_fn=attend_fn)
+                          attend_fn=attend_fn, probe=probe)
 
 
-def decode_step_paged(params, cfg, batch):
+def decode_step_paged(params, cfg, batch, probe=None):
     """One-token decode against a block-paged KV cache.
 
     batch: tokens (B, 1); cache {k, v[, k_scale, v_scale]} with KV paged as
@@ -244,14 +261,14 @@ def decode_step_paged(params, cfg, batch):
     Returns (logits (B, V), cache)."""
     write_fn, attend_fn = _paged_fns(cfg, batch)
     logits, cache = _decode_common(params, cfg, batch, write_fn=write_fn,
-                                   attend_fn=attend_fn)
+                                   attend_fn=attend_fn, probe=probe)
     return logits[:, 0], cache
 
 
-def verify_step_paged(params, cfg, batch):
+def verify_step_paged(params, cfg, batch, probe=None):
     """Multi-token append against the block-paged cache: the
     :func:`verify_step` contract with ``block_tables`` routing the writes
     and the dense-gather verify attention."""
     write_fn, attend_fn = _paged_fns(cfg, batch)
     return _decode_common(params, cfg, batch, write_fn=write_fn,
-                          attend_fn=attend_fn)
+                          attend_fn=attend_fn, probe=probe)

@@ -75,11 +75,15 @@ def init_dense(gen, d_in: int, d_out: int, bias: bool = False,
 
 
 def dense(params, x: torch.Tensor, mode: str = "bf16",
-          backend: str = "auto") -> torch.Tensor:
+          backend: str = "auto", probe=None) -> torch.Tensor:
+    """``probe``: a ``core.probe.StatsCollector`` that records the
+    activation of a quantized matmul (None records nothing)."""
     w = params["w"]
     if w.dtype == torch.int8:
         # pre-quantized serving weights (int8 in device memory)
         int_mode = mode if mode in ("bp_exact", "bp_approx") else "bp_exact"
+        if probe is not None:
+            probe.record(x)
         y = quantized_matmul(x, w, params["w_scale"], int_mode, backend)
     else:
         y = dense_apply(x, w.to(x.dtype), mode)
@@ -165,12 +169,12 @@ def init_ffn(gen, d: int, d_ff: int, ffn_type: str, lead=(), device=None):
 
 
 def ffn(params, x: torch.Tensor, ffn_type: str, mode: str = "bf16",
-        backend: str = "auto") -> torch.Tensor:
+        backend: str = "auto", probe=None) -> torch.Tensor:
     if ffn_type == "swiglu":
-        g = dense(params["w_gate"], x, mode, backend)
-        u = dense(params["w_up"], x, mode, backend)
+        g = dense(params["w_gate"], x, mode, backend, probe)
+        u = dense(params["w_up"], x, mode, backend, probe)
         h = F.silu(g.to(torch.float32)).to(x.dtype) * u
     else:
-        u = dense(params["w_up"], x, mode, backend)
+        u = dense(params["w_up"], x, mode, backend, probe)
         h = F.gelu(u.to(torch.float32), approximate="tanh").to(x.dtype)
-    return dense(params["w_down"], h, mode, backend)
+    return dense(params["w_down"], h, mode, backend, probe)

@@ -22,12 +22,21 @@ The engine is host-side orchestration; device work goes through
 ``serving/executor.py``.  In a ``bp_*`` matmul mode the engine quantizes
 every dense weight to int8 + per-channel scale once, at construction.
 
+Observability: a ``Telemetry`` handle (``ServeConfig.telemetry``) writes
+the step records as JSONL, the spans as a Chrome trace and, with
+``profile_dir``, a ``torch.profiler`` trace per serve; the report is a pure
+fold of the records.  A ``SparsityProbe`` (``ServeConfig.probe``, dense
+family in a bp_* mode) runs probed steps that measure the int8
+activations' bit and value sparsity on the device, and prices each sample
+through the paper's cost models into an ``hw_estimate`` record
+(``ServeReport.hw_measured``); ``ServeReport.deployment`` prices the int8
+weights alone.
+
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-the sparsity probe, fault injection and its recovery ladder (the drafter
-fault rung included), mesh serving, and telemetry sinks.  Of the
+fault injection and its recovery ladder (retry, rebuild-and-replay, the
+watchdog, the drafter and kernel fault rungs), and mesh serving.  Of the
 degradation ladder only the pool-pressure rung (``pool_pressure_limit``)
-is ported.  ``ServeReport.deployment`` is None until the
-BitParticle cost models are ported.
+is ported.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import cost_model as cost
+from repro_torch.core.sparsity import per_layer_counts, sm_bit_counts
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.models.layers import quantize_dense_params
@@ -49,6 +60,9 @@ from repro_torch.serving.cache_manager import make_cache_manager
 from repro_torch.serving.executor import (SingleDeviceExecutor,
                                           make_executor, sample_seed,
                                           sample_tokens)
+from repro_torch.serving.probe import (NULL_PROBE, SparsityProbe,
+                                       int8_leaves, per_layer_weight_stats,
+                                       probe_supported)
 from repro_torch.serving.queue import Request, RequestQueue, RequestState
 from repro_torch.serving.scheduler import (QuasiSyncScheduler,
                                            SchedulerConfig,
@@ -84,10 +98,12 @@ class ServeConfig:
     draft: str = "none"
     num_draft_tokens: int = 4         # K: drafts verified per step
     telemetry: Optional[Telemetry] = None
+    # hardware-cost observability: a ``SparsityProbe``; None = NULL_PROBE
+    # (no probed step runs)
+    probe: Optional[SparsityProbe] = None
     # the fields below select features that are not ported yet; anything
     # but the default raises NotImplementedError when the engine is built
     mesh_shape: Optional[Tuple[int, int]] = None
-    probe: Optional[object] = None
     faults: Optional[object] = None
 
 
@@ -112,8 +128,6 @@ def check_ported(serve_cfg: ServeConfig) -> None:
     unported = []
     if serve_cfg.mesh_shape is not None:
         unported.append("mesh_shape")
-    if serve_cfg.probe is not None:
-        unported.append("probe")
     if serve_cfg.faults is not None:
         unported.append("faults")
     if unported:
@@ -172,7 +186,7 @@ class ServeReport:
     total_new_tokens: int
     slot_utilization: float           # mean occupied-slot fraction per step
     max_divergence: int               # max spread of per-slot positions
-    deployment: Optional[dict] = None # None until the cost models are ported
+    deployment: Optional[dict] = None # BitParticle per-layer cycle/energy
     cache_backend: str = "slab"
     n_preemptions: int = 0            # paged: requests requeued on pool-dry
     prefix_hit_blocks: int = 0        # paged: trie hits adopted by reference
@@ -194,6 +208,17 @@ class ServeReport:
     n_failed: int = 0
     # chunked prefill: prompt tokens ingested through chunk steps
     chunk_tokens: int = 0
+    # fault and degradation records (of the ladder only the pool-pressure
+    # rung emits here)
+    n_faults: int = 0
+    n_injected_faults: int = 0
+    n_retries: int = 0
+    n_degrades: int = 0
+    n_recoveries: int = 0
+    # hardware-cost probe: measured-traffic means over the run's
+    # ``hw_estimate`` records (None when the probe was off or never
+    # sampled); ``deployment`` is the static weights-only estimate
+    hw_measured: Optional[dict] = None
 
     @property
     def acceptance_rate(self) -> float:
@@ -228,6 +253,25 @@ class ServeLoop:
         engine.executor.set_telemetry(self.tel)
         if engine.draft_executor is not None:
             engine.draft_executor.set_telemetry(self.tel)
+        # the sparsity probe: validated up front so a misconfigured probe
+        # fails at loop construction, not at the first probed step
+        self.probe: SparsityProbe = (self.serve_cfg.probe
+                                     if self.serve_cfg.probe is not None
+                                     else NULL_PROBE)
+        if self.probe.enabled and not probe_supported(engine.cfg):
+            raise ValueError(
+                f"ServeConfig.probe: sparsity probe unsupported for "
+                f"family={engine.cfg.family!r} "
+                f"matmul_mode={engine.cfg.matmul_mode!r} (needs a causal-LM "
+                f"family in bp_exact/bp_approx mode)")
+        # the weights' bit sparsity is static during a serve (computed
+        # once per engine)
+        self._weight_profile = (engine.weight_sparsity_profile()
+                                if self.probe.enabled else None)
+        # cost hint: running mean of modeled BitParticle array cycles per
+        # processed token over the probe's samples (0.0 before the first)
+        self._hw_cycles_sum = 0.0
+        self._hw_tokens_sum = 0
         # the in-memory step-record stream: report() is a pure fold over it
         self.stream: List[dict] = []
         self._wall0 = time.perf_counter()
@@ -314,15 +358,27 @@ class ServeLoop:
         # the verify entry point serves speculation and chunked prefill
         # alike (a chunk row feeds known prompt tokens where a decode row
         # feeds drafts)
-        if self.drafter is not None or self.prefill_chunk is not None:
+        need_verify = (self.drafter is not None
+                       or self.prefill_chunk is not None)
+        if need_verify:
             self._verify_fn = engine.executor.verify_sample_fn(
                 paged=self.paged)
+        # the probed variants, swapped in on sampled steps; the unprobed
+        # functions above are the ones a probe-less serve runs
+        self._decode_probe_fn = self._verify_probe_fn = None
+        if self.probe.enabled:
+            self._decode_probe_fn = engine.executor.decode_sample_fn(
+                self.serve_cfg.temperature, paged=self.paged, probed=True)
+            if need_verify:
+                self._verify_probe_fn = engine.executor.verify_sample_fn(
+                    paged=self.paged, probed=True)
         self._emit("run", cache_backend=str(self.serve_cfg.cache_backend),
                    n_slots=int(n_slots), cache_T=int(self.cache_T),
                    draft=str(self.serve_cfg.draft),
                    temperature=float(self.serve_cfg.temperature),
                    mesh_shape=None,
-                   block_size=int(self.serve_cfg.block_size))
+                   block_size=int(self.serve_cfg.block_size),
+                   probe_every=int(self.probe.probe_every))
 
     # -- telemetry plumbing --------------------------------------------------
 
@@ -357,6 +413,47 @@ class ServeLoop:
                 "prefix_hit_blocks": int(pool.n_prefix_hits),
                 "cow_blocks": int(pool.n_cow),
                 "peak_blocks_in_use": int(pool.peak_live)}
+
+    def _fetch_stats(self, stats: list) -> Optional[np.ndarray]:
+        """A probed step's ``(L[+1], N_STATS)`` stats on the host (None on
+        an unprobed step, whose function returned no stats).  The array is
+        the probe's only d2h traffic: counted before the step record's
+        byte snapshot so that record carries it."""
+        if not stats:
+            return None
+        arr = stats[0].cpu().numpy()
+        self.tel.count("d2h_bytes", int(arr.nbytes))
+        return arr
+
+    def _emit_hw(self, stats: np.ndarray, phase: str,
+                 n_tokens: int = 1) -> None:
+        """Fold one sampled step's stats through the probe's cost models
+        into an ``hw_estimate`` record plus Chrome-trace counter tracks.
+        ``n_tokens`` is the tokens this step processed (prompt + committed
+        + chunk-fed): the denominator of the cycles-per-token cost hint."""
+        fields = self.probe.fold(stats, self._weight_profile, phase)
+        self._hw_cycles_sum += float(fields["array_cycles_per_step"])
+        self._hw_tokens_sum += max(int(n_tokens), 1)
+        self._emit("hw_estimate", step=int(self.sched.n_decode_steps),
+                   **fields)
+        self.tel.counter("sparsity",
+                         act_bit=fields["act_bit_sparsity"],
+                         act_value=fields["act_value_sparsity"],
+                         weight_bit=fields["weight_bit_sparsity"])
+        self.tel.counter("hw_model",
+                         array_utilization=fields["array_utilization"],
+                         cycles_bp_exact=fields["cycles"]["bp_exact"],
+                         energy_bp_exact_pj=fields["mac_energy_pj"]
+                         ["bp_exact"])
+
+    @property
+    def cost_hint_cycles_per_token(self) -> float:
+        """Running mean of modeled BitParticle array cycles per processed
+        token over the probe's sampled steps (0.0 with no sample or the
+        probe off): the per-replica cost hint a router reads."""
+        if self._hw_tokens_sum == 0:
+            return 0.0
+        return self._hw_cycles_sum / self._hw_tokens_sum
 
     # -- lifecycle: cancellation + deadlines --------------------------------
 
@@ -536,11 +633,13 @@ class ServeLoop:
         toks = np.zeros((len(group), pad_to), np.int32)
         for j, r in enumerate(group):
             toks[j, :eff[j]] = r.prompt[:eff[j]]
+        probed = self.probe.enabled   # every admission prefill is sampled
         t0 = time.perf_counter()
         with self.tel.span("prefill", group_size=len(group), pad_to=pad_to):
-            logits, cache = self.executor.prefill(
+            logits, cache, *stats = self.executor.prefill(
                 {"tokens": toks}, self.cache_T,
-                prompt_lens=lens if self.ragged else None)
+                prompt_lens=lens if self.ragged else None,
+                **({"probed": True} if probed else {}))
             _sync(self.executor.device)
         wall = time.perf_counter()
         dispatch_s = wall - t0
@@ -586,6 +685,7 @@ class ServeLoop:
                 if self.drafter is not None:
                     self.drafter.on_admit(slot, req)
         install_s = time.perf_counter() - t_inst
+        probe_stats = self._fetch_stats(stats)
         h2d, d2h = self._byte_deltas()
         self._emit("prefill", step=int(self.sched.n_decode_steps),
                    wall_s=time.perf_counter() - t_start,
@@ -598,6 +698,9 @@ class ServeLoop:
                    active_slots=int(self.cm.n_active),
                    h2d_bytes=h2d, d2h_bytes=d2h,
                    **self._pool_gauges())
+        if probe_stats is not None:
+            self._emit_hw(probe_stats, "prefill",
+                          n_tokens=int(lens.sum()) + n_emitted)
 
     def _append_token(self, req: Request, tok: int, wall: float):
         """Record one emitted token with its wall-clock stamp (replayed
@@ -650,10 +753,12 @@ class ServeLoop:
             step["block_tables"] = self.cm.block_tables_device()
         self.tel.count("h2d_bytes", int(self.slot_seeds.nbytes)
                        + int(counts.nbytes))
+        probed = self.probe.should_sample(int(self.sched.n_decode_steps))
+        fn = self._decode_probe_fn if probed else self._decode_fn
         t0 = time.perf_counter()
         with self.tel.span("decode", n_slots=len(slots)):
-            toks, new_cache = self._decode_fn(self.cm.cache, step,
-                                              self.slot_seeds, counts)
+            toks, new_cache, *stats = fn(self.cm.cache, step,
+                                         self.slot_seeds, counts)
             toks_np = toks.cpu().numpy()     # waits for the device
         wall = time.perf_counter()
         dispatch_s = wall - t0
@@ -689,6 +794,7 @@ class ServeLoop:
         commit_s = time.perf_counter() - t_commit
         if n_committed != len(slots):
             self.sched.n_committed_tokens -= len(slots) - n_committed
+        probe_stats = self._fetch_stats(stats)
         h2d, d2h = self._byte_deltas()
         self._emit("decode", step=int(self.sched.n_decode_steps),
                    wall_s=time.perf_counter() - t_start,
@@ -700,6 +806,8 @@ class ServeLoop:
                    committed_tokens=int(n_committed),
                    h2d_bytes=h2d, d2h_bytes=d2h,
                    **self._pool_gauges())
+        if probe_stats is not None:
+            self._emit_hw(probe_stats, "decode", n_tokens=n_committed)
 
     def decode_once_spec(self):
         """One fused multi-token step: speculative verification and/or
@@ -764,9 +872,11 @@ class ServeLoop:
         step = {"tokens": toks, "cache_len": self.cm.cache_len_vector()}
         if self.paged:
             step["block_tables"] = self.cm.block_tables_device()
+        probed = self.probe.should_sample(int(self.sched.n_decode_steps))
+        fn = self._verify_probe_fn if probed else self._verify_fn
         t0 = time.perf_counter()
         with self.tel.span("verify", n_slots=len(slots)):
-            greedy, new_cache = self._verify_fn(self.cm.cache, step)
+            greedy, new_cache, *stats = fn(self.cm.cache, step)
             greedy_np = greedy.cpu().numpy()     # waits for the device
         wall = time.perf_counter()
         dispatch_s = wall - t0
@@ -869,6 +979,7 @@ class ServeLoop:
                 # ones were never admitted into it, just-completed ones had
                 # on_admit called this step with the cache at commit length
                 drafter.observe_commit(slot, int(self.cm.lengths[slot]))
+        probe_stats = self._fetch_stats(stats)
         h2d, d2h = self._byte_deltas()
         self._emit("verify", step=int(self.sched.n_decode_steps),
                    wall_s=time.perf_counter() - t_start,
@@ -883,6 +994,9 @@ class ServeLoop:
                    accepted_tokens=int(self.n_accepted - accepted0),
                    h2d_bytes=h2d, d2h_bytes=d2h,
                    **self._pool_gauges())
+        if probe_stats is not None:
+            self._emit_hw(probe_stats, "verify",
+                          n_tokens=n_committed + n_chunk_fed)
 
     # -- live submission ----------------------------------------------------
 
@@ -919,29 +1033,36 @@ class ServeLoop:
         return self.run_forever(poll_s=0.0)
 
     def run_forever(self, poll_s: float = 0.001) -> ServeReport:
-        """Serve until closed AND drained."""
-        with self.tel.span("serve"):
-            self.submit_arrivals()
-            while True:
-                self._drain_inbox()
-                if not (self.arrivals or len(self.rq) or self.active):
-                    with self._inbox_lock:
-                        done = self._closed and not self._inbox
-                    if done:
-                        break
-                    if poll_s > 0:
-                        time.sleep(poll_s)
-                    continue
-                self.sweep()
-                if not (self.arrivals or len(self.rq) or self.active):
+        """Serve until closed AND drained.  The telemetry's profiler runs
+        around the whole serve; its trace and the span trace are written
+        when the serve ends, also when it raises."""
+        self.tel.start_profile()
+        try:
+            with self.tel.span("serve"):
+                self.submit_arrivals()
+                while True:
+                    self._drain_inbox()
+                    if not (self.arrivals or len(self.rq) or self.active):
+                        with self._inbox_lock:
+                            done = self._closed and not self._inbox
+                        if done:
+                            break
+                        if poll_s > 0:
+                            time.sleep(poll_s)
+                        continue
+                    self.sweep()
+                    if not (self.arrivals or len(self.rq) or self.active):
+                        if self.on_step_end is not None:
+                            self.on_step_end(self)
+                        continue
+                    self._step()
                     if self.on_step_end is not None:
                         self.on_step_end(self)
-                    continue
-                self._step()
-                if self.on_step_end is not None:
-                    self.on_step_end(self)
-        self._emit_request_records()
-        return self.report()
+            self._emit_request_records()
+            return self.report()
+        finally:
+            self.tel.stop_profile()
+            self.tel.flush()
 
     def _emit_request_records(self) -> None:
         step = int(self.sched.n_decode_steps)
@@ -1008,6 +1129,18 @@ class ServeLoop:
         itl = [b - a for r in self.requests
                for a, b in zip(r.wall_token_times, r.wall_token_times[1:])]
         s = reduce_stream(self.stream)
+        hw = None
+        if s.n_hw_samples:
+            n = s.n_hw_samples
+            hw = {"n_samples": int(n),
+                  "probe_every": int(self.probe.probe_every),
+                  "act_bit_sparsity": s.hw_act_bit_sparsity / n,
+                  "act_value_sparsity": s.hw_act_value_sparsity / n,
+                  "weight_bit_sparsity": s.hw_weight_bit_sparsity / n,
+                  "array_utilization": s.hw_array_utilization / n,
+                  "cycles": {k: v / n for k, v in s.hw_cycles.items()},
+                  "mac_energy_pj": {k: v / n for k, v
+                                    in s.hw_mac_energy_pj.items()}}
         names = sorted(set(s.slo_ttft_samples) | set(s.slo_itl_samples))
         slo = ({name: {"n": len(s.slo_ttft_samples.get(name, ())),
                        "ttft_wall": percentiles(
@@ -1025,7 +1158,8 @@ class ServeLoop:
             total_new_tokens=s.total_new_tokens,
             slot_utilization=s.slot_utilization,
             max_divergence=s.max_divergence,
-            deployment=None,
+            deployment=self.engine.deployment_estimate(),
+            hw_measured=hw,
             cache_backend=self.serve_cfg.cache_backend,
             n_preemptions=s.n_preemptions,
             prefix_hit_blocks=s.prefix_hit_blocks,
@@ -1044,6 +1178,11 @@ class ServeLoop:
             n_cancelled=s.n_cancelled,
             n_timed_out=s.n_timed_out,
             n_failed=sum(1 for r in results if r.finish_reason == "failed"),
+            n_faults=s.n_faults,
+            n_injected_faults=s.n_injected_faults,
+            n_retries=s.n_retries,
+            n_degrades=s.n_degrades,
+            n_recoveries=s.n_recoveries,
         )
 
 
@@ -1083,6 +1222,13 @@ class ServingEngine:
                     draft_params = quantize_dense_params(draft_params)
             self.draft_executor = make_executor(draft_cfg, draft_params,
                                                 device=self.device)
+        self._deployment_cache: Dict[int, Optional[dict]] = {}
+        self._weight_profile: Optional[dict] = None
+        if (self.serve_cfg.probe is not None and self.serve_cfg.probe.enabled
+                and arch_cfg.matmul_mode in ("bp_exact", "bp_approx")):
+            # compute the probe's static weight factor now, so the first
+            # sampled step folds without a stall
+            self.weight_sparsity_profile()
         # request ids queued for cancellation (drained by the loop's sweep)
         self._pending_cancels: Set[int] = set()
 
@@ -1186,3 +1332,77 @@ class ServingEngine:
         return self.make_loop(requests, n_slots=n_slots, cache_T=cache_T,
                               sched_cfg=sched_cfg,
                               num_blocks=num_blocks).run()
+
+    # ------------------------------------------------------------------
+    # BitParticle deployment estimate
+    # ------------------------------------------------------------------
+
+    def deployment_estimate(self, n_mc: int = 20_000) -> Optional[dict]:
+        """Per-layer modeled cycles/energy of the int8 weights on the
+        BitParticle array (None unless a bp_* matmul mode is active).
+        Cached: it depends only on the immutable params.  A layer's bit
+        sparsity is the mean of its weight matrices' (each matrix weighs
+        the same); -1 is the unstacked weights (an untied lm head)."""
+        mode = self.cfg.matmul_mode
+        if mode not in ("bp_exact", "bp_approx"):
+            return None
+        if n_mc in self._deployment_cache:
+            return self._deployment_cache[n_mc]
+        L = self.cfg.num_layers
+        per_layer_bs: Dict[int, List[float]] = {}
+        for _, leaf in int8_leaves(self.params):
+            stacked = leaf.ndim >= 2 and leaf.shape[0] == L
+            rows = (per_layer_counts(leaf) if stacked
+                    else sm_bit_counts(leaf)[None]).cpu().numpy()
+            for l, (zb, n, _) in enumerate(rows):
+                per_layer_bs.setdefault(l if stacked else -1, []).append(
+                    float(zb) / (7.0 * max(float(n), 1.0)))
+        if not per_layer_bs:
+            return None
+        layers = []
+        for l in sorted(per_layer_bs):
+            bs = float(np.mean(per_layer_bs[l]))
+            layers.append({
+                "layer": l,
+                "bit_sparsity": bs,
+                "avg_cycles_per_mac": cost.modeled_avg_cycles(mode, bs,
+                                                              n=n_mc),
+                "mac_energy_pj": cost.mac_energy_pj(mode, bs),
+            })
+        est = {
+            "mode": mode,
+            "per_layer": layers,
+            "mean_bit_sparsity": float(
+                np.mean([e["bit_sparsity"] for e in layers])),
+            "mean_cycles_per_mac": float(
+                np.mean([e["avg_cycles_per_mac"] for e in layers])),
+            "mean_mac_energy_pj": float(
+                np.mean([e["mac_energy_pj"] for e in layers])),
+        }
+        self._deployment_cache[n_mc] = est
+        return est
+
+    def weight_sparsity_profile(self) -> dict:
+        """Element-weighted weight bit/value sparsity of the int8 params,
+        once per engine (the probe's static factor).  Unlike
+        ``deployment_estimate``'s per-matrix mean, these rates weight every
+        int8 element equally: the reduction the probe applies to
+        activations, so the two factors compare directly."""
+        if self._weight_profile is None:
+            stacked, tail = per_layer_weight_stats(self.params,
+                                                   self.cfg.num_layers)
+            rows = (stacked if tail is None
+                    else np.concatenate([stacked, tail[None, :]]))
+            total = rows.sum(axis=0)
+            n = max(float(total[1]), 1.0)
+            per_n = np.maximum(stacked[:, 1], 1.0)
+            self._weight_profile = {
+                "bit_sparsity": float(total[0] / (7.0 * n)),
+                "value_sparsity": float(total[2] / n),
+                "per_layer_bit_sparsity":
+                    (stacked[:, 0] / (7.0 * per_n)).tolist(),
+                "tail_bit_sparsity":
+                    (None if tail is None
+                     else float(tail[0] / (7.0 * max(tail[1], 1.0)))),
+            }
+        return self._weight_profile

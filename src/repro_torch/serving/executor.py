@@ -18,6 +18,12 @@ the decode functions below pass for every family.
 The matmul backend is the config's ``matmul_backend`` (``auto``: the CUDA
 kernel on the GPU, the plain version on the CPU).  The mesh executor is not
 ported yet.
+
+``probed=True`` selects the sparsity probe's variants of the prefill,
+decode-sample and verify-sample functions (``api.*_probed``): the same
+forward with a stats collector passed down the layer loop, returning the
+``(L[+1], N_STATS)`` activation stats on the device as a third output.  The
+unprobed functions are the ones the serve ran before the probe existed.
 """
 
 from __future__ import annotations
@@ -90,45 +96,60 @@ class SingleDeviceExecutor:
         self.telemetry.count("h2d_bytes", arr.nbytes)
         return torch.as_tensor(arr, dtype=dtype, device=self.device)
 
+    def _step_batch(self, cache, step, paged: bool) -> dict:
+        """A decode or verify step's model batch: the host ``tokens`` and
+        ``cache_len`` put on the device, the cache, and on the paged store
+        the device block tables."""
+        b = {"tokens": self.put(step["tokens"], torch.long),
+             "cache_len": self.put(step["cache_len"], torch.long),
+             "cache": cache}
+        if paged:
+            b["block_tables"] = step["block_tables"]
+        return b
+
     # -- model entry points -------------------------------------------------
 
     @torch.no_grad()
-    def prefill(self, batch, cache_T: int, prompt_lens=None):
+    def prefill(self, batch, cache_T: int, prompt_lens=None,
+                probed: bool = False):
         """(last-position logits (B, V), prefill cache padded to cache_T).
-        ``prompt_lens`` selects the ragged right-padded variant."""
+        ``prompt_lens`` selects the ragged right-padded variant.
+        ``probed=True`` also returns the activation stats."""
         self._require_params()
         b = {"tokens": self.put(batch["tokens"], torch.long)}
         lens = None if prompt_lens is None else self.put(prompt_lens,
                                                          torch.long)
-        return api.prefill(self._params, self.cfg, b, cache_T,
-                           prompt_lens=lens)
+        entry = api.prefill_probed if probed else api.prefill
+        return entry(self._params, self.cfg, b, cache_T, prompt_lens=lens)
 
-    def decode_sample_fn(self, temperature: float, paged: bool = False):
+    def decode_sample_fn(self, temperature: float, paged: bool = False,
+                         probed: bool = False):
         """``fn(cache, step, seeds, counts) -> (tokens (n_slots,) int32 on
         the device, cache)``: decode + per-slot sampling in one call; only
         the sampled tokens need to cross to the host.  ``step`` holds host
         arrays ``tokens`` (n_slots, 1) and ``cache_len`` (n_slots,) and,
         when ``paged``, the device ``block_tables`` (put, and so counted as
         h2d bytes, by ``PagedCacheManager.block_tables_device``);
-        ``seeds``/``counts`` give each slot's sampling stream."""
+        ``seeds``/``counts`` give each slot's sampling stream.
+        ``probed=True``: ``(tokens, cache, stats)``."""
         self._require_params()
-        decode = api.decode_step_paged if paged else api.decode_step
+        if probed:
+            decode = (api.decode_step_paged_probed if paged
+                      else api.decode_step_probed)
+        else:
+            decode = api.decode_step_paged if paged else api.decode_step
 
         @torch.no_grad()
         def fn(cache, step, seeds, counts):
-            b = {"tokens": self.put(step["tokens"], torch.long),
-                 "cache_len": self.put(step["cache_len"], torch.long),
-                 "cache": cache}
-            if paged:
-                b["block_tables"] = step["block_tables"]
-            logits, cache = decode(self._params, self.cfg, b)
+            b = self._step_batch(cache, step, paged)
+            logits, cache, *stats = decode(self._params, self.cfg, b)
             draw = (None if temperature <= 0 else
                     [sample_seed(s, c) for s, c in zip(seeds, counts)])
-            return sample_tokens(logits, temperature, draw), cache
+            return (sample_tokens(logits, temperature, draw), cache, *stats)
 
         return fn
 
-    def verify_sample_fn(self, paged: bool = False):
+    def verify_sample_fn(self, paged: bool = False, probed: bool = False):
         """``fn(cache, step) -> (greedy (B, S) int32 tokens on the device,
         cache)`` for the multi-token verify step (speculation and chunked
         prefill): ONE forward appends the S fed tokens at per-slot
@@ -136,21 +157,21 @@ class SingleDeviceExecutor:
         the (B, S) grid needs to cross to the host, never the (B, S, V)
         logits.  A (slot, position) whose logits are not all finite gives
         -1.  ``step`` is as for :meth:`decode_sample_fn`, with ``tokens``
-        (B, S)."""
+        (B, S).  ``probed=True``: ``(tokens, cache, stats)``."""
         self._require_params()
-        verify = api.verify_step_paged if paged else api.verify_step
+        if probed:
+            verify = (api.verify_step_paged_probed if paged
+                      else api.verify_step_probed)
+        else:
+            verify = api.verify_step_paged if paged else api.verify_step
 
         @torch.no_grad()
         def fn(cache, step):
-            b = {"tokens": self.put(step["tokens"], torch.long),
-                 "cache_len": self.put(step["cache_len"], torch.long),
-                 "cache": cache}
-            if paged:
-                b["block_tables"] = step["block_tables"]
-            logits, cache = verify(self._params, self.cfg, b)
+            b = self._step_batch(cache, step, paged)
+            logits, cache, *stats = verify(self._params, self.cfg, b)
             B, S, V = logits.shape
             tok = sample_tokens(logits.reshape(B * S, V), 0.0)
-            return tok.reshape(B, S), cache
+            return (tok.reshape(B, S), cache, *stats)
 
         return fn
 

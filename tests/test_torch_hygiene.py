@@ -6,10 +6,10 @@ refuses what it does not implement yet.
     ``chip_smoke.py``) names either in an import statement;
   * the entry points default to ``device="cuda"`` and raise where CUDA is
     absent, instead of running on the CPU unasked;
-  * every ``ServeConfig`` feature that is not ported raises
-    ``NotImplementedError`` when the engine is built, and what is ported
-    (the paged store, speculative decoding, chunked prefill) builds and
-    serves on the CPU;
+  * every ``ServeConfig`` feature that is not ported (fault injection, mesh
+    serving) raises ``NotImplementedError`` when the engine is built, and
+    what is ported (the paged store, speculative decoding, chunked prefill,
+    the sparsity probe, the telemetry sinks) builds and serves on the CPU;
   * the kernel wrappers refuse what their kernels do not take instead of
     falling back;
   * ``chip_smoke.py`` exits nonzero and prints no result without a GPU or
@@ -75,7 +75,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.kernels.wkv6.ref",
                  "repro_torch.kernels.wkv6.build", "repro_torch.models.rwkv6",
                  "repro_torch.models.rwkv_model",
-                 "repro_torch.configs.rwkv6_7b"):
+                 "repro_torch.configs.rwkv6_7b",
+                 "repro_torch.core.bitparticle", "repro_torch.core.sparsity",
+                 "repro_torch.core.cost_model", "repro_torch.core.array_sim",
+                 "repro_torch.core.dataflow", "repro_torch.core.probe",
+                 "repro_torch.serving.probe",
+                 "repro_torch.serving.telemetry"):
         assert name in walked, name
 
 
@@ -123,7 +128,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     ("draft", "model", "needs a draft model"),
     ("prefill_chunk", 16, "serves"),
     ("mesh_shape", (1, 2), "not ported"),
-    ("probe", object(), "not ported"),
+    ("probe", serving.SparsityProbe(probe_every=1, n_mc=2000), "serves"),
     ("faults", object(), "not ported"),
 ])
 def test_serve_features_build_or_raise(field, value, outcome):
@@ -147,6 +152,9 @@ def test_serve_features_build_or_raise(field, value, outcome):
     assert [len(r.tokens) for r in rep.results] == [3, 3]
     assert rep.draft == scfg.draft
     assert rep.chunk_tokens == (8 if field == "prefill_chunk" else 0)
+    # a probed serve samples its prefill and each of its 2 decode steps
+    assert (rep.hw_measured is not None and rep.hw_measured["n_samples"]
+            == 3) == (field == "probe")
 
 
 @pytest.mark.parametrize("int8kv", [False, True], ids=["bf16kv", "int8kv"])
@@ -193,13 +201,25 @@ def test_paged_attention_kernel_backend_refuses(case):
                                backend="xla", **kw)
 
 
-def test_unported_families_and_sinks_raise():
+def test_unported_families_and_sinks_raise(tmp_path):
+    """Unported families raise; the telemetry sinks, ported now, write a
+    metrics file that parses back into the served records."""
     with pytest.raises(NotImplementedError, match="not ported"):
         get_arch("zamba2-2.7b")
     with pytest.raises(NotImplementedError, match="not ported"):
         api.init(_small_cfg(family="moe"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serving.Telemetry(metrics_path="metrics.jsonl")
+    cfg = _small_cfg(matmul_mode="bp_exact")
+    path = tmp_path / "metrics.jsonl"
+    with serving.Telemetry(metrics_path=str(path)) as tel:
+        engine = serving.ServingEngine(
+            cfg, api.init(cfg, device="cpu"),
+            serving.ServeConfig(max_new_tokens=2, telemetry=tel),
+            device="cpu")
+        engine.serve([serving.Request(
+            prompt=torch.arange(2, 8, dtype=torch.int32).numpy(),
+            max_new_tokens=2)], n_slots=1)
+    kinds = [r["kind"] for r in serving.read_jsonl(str(path))]
+    assert kinds == ["run", "prefill", "decode", "request"]
     # the bp_* modes take weights quantized once, not float weights
     cfg = _small_cfg(matmul_mode="bp_exact")
     tokens = torch.zeros((1, 4), dtype=torch.long)

@@ -212,7 +212,15 @@ def test_greedy_serve_matches_reference(reference, engines, mode, workload):
     for field in REPORT_FIELDS:
         assert got["report"][field] == pytest.approx(
             want["report"][field]), field
-    assert got_rep.deployment is None      # cost models not ported yet
+    # the static weights-only estimate: bp_* modes only, one entry per layer
+    dep = got_rep.deployment
+    if mode == "bf16":
+        assert dep is None
+    else:
+        assert dep["mode"] == mode
+        assert [e["layer"] for e in dep["per_layer"]] == list(
+            range(SMALL["num_layers"]))
+        assert 1.0 <= dep["mean_cycles_per_mac"] <= 4.0
 
 
 def test_bridge_carries_the_reference_weights(reference, engines):
