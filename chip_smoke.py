@@ -107,6 +107,45 @@ are missing.  Phases, one JSON line each:
                a fold, of ``deployment_estimate`` and of the weight
                profile.  A one-request serve with ``profile_dir`` must
                write a ``torch.profiler`` trace naming K1's kernel;
+  serve_chaos  fault injection and the recovery ladder on the paged main
+               path (the ``serve_paged`` workload and pool), three runs:
+               the reference chaos benchmark's seeded injector (step,
+               prefill, pool, OOM, NaN, drafter and cancel faults, at most
+               10) under ``draft="prompt_lookup"``, K 3, whose survivors
+               must equal a fault-free prompt-lookup serve and whose
+               cancelled or failed streams a prefix of it, except near-tie
+               flips, each reported, with every injection in the stream as
+               a ``fault`` record, no block left live, K1 launching on the
+               last step and K2 once per layer per classic decode; two
+               scheduled step faults without retry, whose second recovery
+               takes the kernel rung (one ``plain_fallback`` degrade, then
+               K1 and K2 never launch again in that serve, while the
+               engine's executor keeps its backend); one 3 s latency spike
+               against a 1.5 s watchdog (one ``StepTimeout``, one recovery, the
+               abandoned step joined before the phase ends).  The last two
+               run without a drafter and must give ``serve_paged``'s
+               tokens except near-tie flips.  Prints every run's record
+               counts and the recoveries' wall times.  This is the only
+               phase where the kernel rung may fire: every other serve of
+               this script must show no fault, retry, recovery, failed
+               request or degrade record but the pool-pressure rung's;
+  serve_frontdoor  the HTTP/SSE front door on the paged main path: two
+               replicas, each its own engine over the same quantized
+               weights and its own 36-block pool, behind
+               ``FrontDoor(policy="affinity")`` on 127.0.0.1; the
+               ``serve_paged`` requests and four sharing a second system
+               prompt, from client threads, half streamed over SSE, one
+               client hanging up after 4 tokens.  ``/healthz`` and
+               ``/v1/stats`` must answer, the hung-up request end
+               cancelled and both pools drain, every other stream equal a
+               direct serve except near-tie flips, each system prompt stay
+               on one replica (prefix hits), every replica worker launch on
+               the loop's stream, and K1's (per route) and K2's launches
+               equal what both replicas' step streams predict.  Reports
+               the TTFT and inter-token gaps the clients see over HTTP,
+               the door's added latency per token (client receipt against
+               the engine's commit stamp), and each replica's step p50
+               beside ``serve_paged``'s;
   serve_rwkv   the third main path, after the qwen2 weights are freed:
                full-width, full-depth rwkv6-7b (random weights from a seed)
                in bp_exact on the slab store, greedy; prompts of 64-256
@@ -959,6 +998,32 @@ def launch_counts():
             "wkv6": wkv_ops.LAUNCHES["wkv6"]}
 
 
+def no_fault_guard(report, stream, phase: str) -> None:
+    """A serve that injects nothing must show no fault, retry, recovery or
+    failed request, and no degrade record but the pool-pressure rung's.
+    The engine raises a kernel's own failure and never recovers from it;
+    this guard holds every other fault to zero as well, so that no failure
+    hides behind the recovery ladder as failed requests."""
+    failed = [r.request_id for r in report.results
+              if r.finish_reason == "failed"]
+    degrades = sorted({r["action"] for r in stream if r["kind"] == "degrade"}
+                      - {"shrink_lead_window"})
+    check(report.n_faults == report.n_retries == report.n_recoveries == 0
+          and not failed and not degrades,
+          f"{phase}: a serve without injection saw {report.n_faults} "
+          f"faults, {report.n_retries} retries, {report.n_recoveries} "
+          f"recoveries, failed requests {failed}, degrades {degrades}: "
+          f"{[r for r in stream if r['kind'] == 'fault'][:3]}")
+
+
+def guarded_serve(engine, requests, **kw):
+    """``engine.serve(requests, **kw)`` held to :func:`no_fault_guard`."""
+    loop = engine.make_loop(requests, **kw)
+    report = loop.run()
+    no_fault_guard(report, loop.stream, "a serve")
+    return report
+
+
 def _requests(serving, rng, vocab: int, n: int):
     reqs = []
     for i in range(n):
@@ -1042,7 +1107,7 @@ def phase_serve(torch, gpu, model, n_requests=8, n_slots=4, lead_window=4):
 
     cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
     # warm-up serve (allocator, cuBLAS handles): not measured
-    engine.serve(_copies(serving, prompts[:2]), n_slots=n_slots,
+    guarded_serve(engine, _copies(serving, prompts[:2]), n_slots=n_slots,
                  cache_T=cache_T, sched_cfg=sched)
     torch.cuda.synchronize()
 
@@ -1052,6 +1117,7 @@ def phase_serve(torch, gpu, model, n_requests=8, n_slots=4, lead_window=4):
     loop = engine.make_loop(_copies(serving, prompts), n_slots=n_slots,
                             cache_T=cache_T, sched_cfg=sched)
     report = loop.run()
+    no_fault_guard(report, loop.stream, "serve")
     torch.cuda.synchronize()
     launches = {"bp_matmul": ops.LAUNCHES["bp_matmul"],
                 "bp_matmul_gemv": ops.LAUNCHES["gemv"],
@@ -1070,7 +1136,7 @@ def phase_serve(torch, gpu, model, n_requests=8, n_slots=4, lead_window=4):
     ops.reset_launches()
     plain = serving.ServingEngine(cfg.replace(matmul_backend="plain"),
                                   params, scfg, device="cuda")
-    rep_plain = plain.serve(_copies(serving, prompts), n_slots=n_slots,
+    rep_plain = guarded_serve(plain, _copies(serving, prompts), n_slots=n_slots,
                             cache_T=cache_T, sched_cfg=sched)
     plain_launches = ops.LAUNCHES["bp_matmul"]
     toks_plain = {r.request_id: r.tokens.tolist() for r in rep_plain.results}
@@ -1192,7 +1258,8 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
     cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
     kw = dict(n_slots=n_slots, cache_T=cache_T, sched_cfg=sched)
     # warm-up serve (allocator): not measured
-    engine.serve(_copies(serving, prompts[:2]), num_blocks=num_blocks, **kw)
+    guarded_serve(engine, _copies(serving, prompts[:2]),
+                  num_blocks=num_blocks, **kw)
     torch.cuda.synchronize()
 
     # -- the measured main-path run: counts zeroed just before, read after
@@ -1205,6 +1272,7 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
     loop.on_step_end = lambda lp: step_lengths.append(
         lp.cm.cache_len_vector().tolist())
     report = loop.run()
+    no_fault_guard(report, loop.stream, "serve_paged")
     torch.cuda.synchronize()
     launches = launch_counts()
     peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1221,12 +1289,13 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
     # -- the same serve through the plain versions of both kernels, and the
     # slab store with the same bf16 KV cache
     reset_counts()
-    rep_plain = engine_for(cfg.replace(matmul_backend="plain")).serve(
+    rep_plain = guarded_serve(
+        engine_for(cfg.replace(matmul_backend="plain")),
         _copies(serving, prompts), num_blocks=num_blocks, **kw)
     plain_launches = launch_counts()
     reset_counts()
-    rep_slab = engine_for(cfg, backend="slab").serve(
-        _copies(serving, prompts), **kw)
+    rep_slab = guarded_serve(engine_for(cfg, backend="slab"),
+                             _copies(serving, prompts), **kw)
     reset_counts()
     flips = {}
     for name, rep in (("plain", rep_plain), ("slab", rep_slab)):
@@ -1271,6 +1340,7 @@ def phase_serve_paged(torch, gpu, model, n_requests=8, n_slots=4,
         "decode_step_ms_p90": p["p90"] if p else None,
         "prefill_s": report.prefill_s, "decode_s": report.decode_s,
         "ttft_wall_s_by_request": [r.ttft_wall_s for r in report.results],
+        "itl_wall_s": report.itl_wall,
         "peak_mem_gb": peak_mem_gb,
         "first_tokens": toks[0][:8],
         "profile": profile,
@@ -1429,7 +1499,7 @@ def phase_serve_spec(torch, gpu, model, base, base_toks, n_requests=8,
     tel = span_recorder(serving)
     engine = engine_for(cfg, "model", tel)
     # warm-up serve (allocator): not measured
-    engine.serve(_copies(serving, prompts[:2], 8), **kw)
+    guarded_serve(engine, _copies(serving, prompts[:2], 8), **kw)
     torch.cuda.synchronize()
     marks["warm_up"] = time.perf_counter()
 
@@ -1439,6 +1509,7 @@ def phase_serve_spec(torch, gpu, model, base, base_toks, n_requests=8,
     reset_counts()
     loop = engine.make_loop(_copies(serving, prompts), **kw)
     report = loop.run()
+    no_fault_guard(report, loop.stream, "serve_spec")
     torch.cuda.synchronize()
     launches = launch_counts()
     want, d_counts = expected(loop, tel.spans)
@@ -1454,7 +1525,7 @@ def phase_serve_spec(torch, gpu, model, base, base_toks, n_requests=8,
     # -- the same speculative serve through the plain versions
     reset_counts()
     plain = engine_for(cfg.replace(matmul_backend="plain"), "model")
-    rep_plain = plain.serve(_copies(serving, prompts), **kw)
+    rep_plain = guarded_serve(plain, _copies(serving, prompts), **kw)
     plain_launches = launch_counts()
     reset_counts()
     raw = [r.prompt for r in prompts]
@@ -1486,6 +1557,7 @@ def phase_serve_spec(torch, gpu, model, base, base_toks, n_requests=8,
     reset_counts()
     l_loop = l_engine.make_loop(_copies(serving, look), **l_kw)
     l_rep = l_loop.run()
+    no_fault_guard(l_rep, l_loop.stream, "serve_spec")
     torch.cuda.synchronize()
     l_launches = launch_counts()
     l_routes, _ = matmul_routes(l_loop.stream, per_forward, verify_s=k + 1)
@@ -1496,6 +1568,7 @@ def phase_serve_spec(torch, gpu, model, base, base_toks, n_requests=8,
     l_base_loop = engine_for(cfg, "none").make_loop(_copies(serving, look),
                                                     **l_kw)
     l_base = l_base_loop.run()
+    no_fault_guard(l_base, l_base_loop.stream, "serve_spec")
     reset_counts()
     l_toks = {r.request_id: r.tokens.tolist() for r in l_rep.results}
     l_flips = _stream_flips(
@@ -1665,7 +1738,7 @@ def phase_serve_chunked(torch, gpu, model, base, base_toks, n_requests=8,
               sched_cfg=serving.SchedulerConfig(lead_window=lead_window))
     t_phase, marks = time.perf_counter(), {}
     engine = engine_for(cfg)
-    engine.serve(_copies(serving, prompts[:2], 8), **kw)     # warm-up
+    guarded_serve(engine, _copies(serving, prompts[:2], 8), **kw)  # warm-up
     torch.cuda.synchronize()
     marks["warm_up"] = time.perf_counter()
 
@@ -1674,6 +1747,7 @@ def phase_serve_chunked(torch, gpu, model, base, base_toks, n_requests=8,
     reset_counts()
     loop = engine.make_loop(_copies(serving, prompts), **kw)
     report = loop.run()
+    no_fault_guard(report, loop.stream, "serve_chunked")
     torch.cuda.synchronize()
     launches = launch_counts()
     peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1690,7 +1764,8 @@ def phase_serve_chunked(torch, gpu, model, base, base_toks, n_requests=8,
 
     # -- the same chunked serve through the plain versions
     reset_counts()
-    rep_plain = engine_for(cfg.replace(matmul_backend="plain")).serve(
+    rep_plain = guarded_serve(
+        engine_for(cfg.replace(matmul_backend="plain")),
         _copies(serving, prompts), **kw)
     plain_launches = launch_counts()
     reset_counts()
@@ -1838,7 +1913,7 @@ def phase_serve_probe(torch, gpu, model, base, base_toks, base_launches,
               sched_cfg=serving.SchedulerConfig(lead_window=lead_window))
     # warm-up serve (allocator; builds the probe's cycle tables): not
     # measured
-    engine.serve(_copies(serving, prompts[:2], 8), **kw)
+    guarded_serve(engine, _copies(serving, prompts[:2], 8), **kw)
     torch.cuda.synchronize()
     cold_fold_s = fold_s[0]
     fold_s.clear()
@@ -1855,6 +1930,7 @@ def phase_serve_probe(torch, gpu, model, base, base_toks, base_launches,
         reset_counts()
         loop = engine.make_loop(_copies(serving, prompts), **kw)
         report = loop.run()
+        no_fault_guard(report, loop.stream, "serve_probe")
         torch.cuda.synchronize()
         launches = launch_counts()
         tel.close()
@@ -1871,7 +1947,7 @@ def phase_serve_probe(torch, gpu, model, base, base_toks, base_launches,
         engine.serve_cfg = dataclasses.replace(engine.serve_cfg,
                                                telemetry=prof_tel)
         # one prefill (K1's tiles) and one decode step (its GEMV)
-        engine.serve(_copies(serving, prompts[:1], 2), **kw)
+        guarded_serve(engine, _copies(serving, prompts[:1], 2), **kw)
         reset_counts()
         prof_names = set()
         for path in prof_tel.profile_paths:
@@ -2001,6 +2077,532 @@ def phase_serve_probe(torch, gpu, model, base, base_toks, base_launches,
     check(loop.cost_hint_cycles_per_token > 0, "no cost hint")
     check(bool(k1_in_profile), "K1's kernel is missing from the "
                                "torch.profiler trace")
+    return result, launches
+
+
+#: serve_chaos's seeded run: the reference chaos benchmark's rates
+#: (``benchmarks/chaos_smoke.py``), at most 10 faults
+CHAOS_RATES = {"step": 0.05, "prefill": 0.05, "pool": 0.05, "oom": 0.03,
+               "nan": 0.01, "drafter": 0.10, "cancel": 0.01}
+#: serve_chaos's watchdog run: the injected spike and the budget it breaks
+CHAOS_SLOW_S = 3.0
+CHAOS_STEP_TIMEOUT_S = 1.5
+
+
+def _stream_parts(torch, np, engine, prompts, got, want, cache_T, names,
+                  partial=()):
+    """:func:`_stream_flips` where the requests in ``partial`` (cancelled
+    or failed early) are held to a prefix of ``want`` only."""
+    return [_flip(torch, np, engine, prompts[i], got[i], want[i], cache_T, i,
+                  names=names)
+            for i in got
+            if got[i] != (want[i][:len(got[i])] if i in partial
+                          else want[i])]
+
+
+def _kind_counts(stream):
+    out = {}
+    for r in stream:
+        out[r["kind"]] = out.get(r["kind"], 0) + 1
+    return out
+
+
+def _step_deltas(stream, per_step):
+    """Per loop iteration: the kinds of the records it emitted and the
+    launches it made (``per_step``: the stream's length and the launch
+    counts after each iteration, counted from zero)."""
+    out, prev_n, prev = [], 0, None
+    for n, counts in per_step:
+        prev = prev or {k: 0 for k in counts}
+        out.append(({r["kind"] for r in stream[prev_n:n]},
+                    {k: counts[k] - prev[k] for k in counts}))
+        prev_n, prev = n, counts
+    return out
+
+
+def _join_watchdogs(threading, timeout_s=60.0):
+    """Wait for every watchdog worker the serves abandoned: their late
+    launches must not land in a later phase's counts."""
+    workers = [t for t in threading.enumerate()
+               if t.name.startswith("serve-watchdog")]
+    for t in workers:
+        t.join(timeout=timeout_s)
+    return [t.name for t in workers if t.is_alive()]
+
+
+def phase_serve_chaos(torch, gpu, model, base, base_toks, n_requests=8,
+                      n_slots=4, lead_window=4, block_size=16,
+                      num_blocks=PAGED_NUM_BLOCKS, k=3):
+    """Fault injection and the recovery ladder on the paged main path (the
+    ``serve_paged`` workload and pool, bp_exact, bf16 KV), in three runs:
+
+      chaos     ``draft="prompt_lookup"``, K 3, under the reference chaos
+                benchmark's seeded injector; survivors must equal a
+                fault-free prompt-lookup serve except near-tie flips, a
+                cancelled or failed stream a prefix of it, every injection
+                must be in the stream, no block may stay live, and K1 must
+                launch on the run's last step.  Verify steps take the dense
+                gather, so K2 runs only on classic decodes (after the
+                drafter rung), exactly once per layer each;
+      kernel    no drafter, two scheduled step faults and no retry: the
+                second recovery takes the kernel rung, one
+                ``plain_fallback`` degrade, after which K1 and K2 never
+                launch again in that serve, and the engine's executor keeps
+                its backend; tokens equal ``serve_paged``'s except
+                near-tie flips (K2 against its plain version);
+      watchdog  no drafter, one 3 s latency spike against a 1.5 s budget:
+                one ``StepTimeout`` fault, one recovery, tokens equal
+                ``serve_paged``'s except near-tie flips.
+
+    Prints every run's record counts and the recoveries' wall times (the
+    ``recover`` call, then the replay prefill after it)."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch import serving
+
+    cfg = model["cfg"].replace(kv_cache_int8=False)
+    params = model["params"]
+    L = cfg.num_layers
+    prompts = _paged_requests(serving, np.random.default_rng(1),
+                              cfg.vocab_size, n_requests)
+    raw = [r.prompt for r in prompts]
+    cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
+
+    def loop_for(draft="none", **scfg):
+        engine = serving.ServingEngine(
+            cfg, params, serving.ServeConfig(
+                max_new_tokens=32, temperature=0.0, cache_backend="paged",
+                block_size=block_size, draft=draft, num_draft_tokens=k,
+                **scfg), device="cuda")
+        return engine.make_loop(
+            _copies(serving, prompts), n_slots=n_slots, cache_T=cache_T,
+            num_blocks=num_blocks,
+            sched_cfg=serving.SchedulerConfig(lead_window=lead_window))
+
+    def run(loop):
+        """Serve, with the launch counts after every loop iteration and
+        the wall time of every ``recover`` call."""
+        per_step, recover_s = [], []
+        recover = loop.recover
+
+        def timed_recover(error):
+            t0 = time.perf_counter()
+            recover(error)
+            recover_s.append(time.perf_counter() - t0)
+
+        loop.recover = timed_recover
+        loop.on_step_end = lambda lp: per_step.append(
+            (len(lp.stream), launch_counts()))
+        reset_counts()
+        report = loop.run()
+        torch.cuda.synchronize()
+        return report, per_step, recover_s
+
+    def summary(loop, report, recover_s):
+        # each recovery's replay prefill: the first prefill record after
+        # it, unless another recovery came first
+        replay, since = [], None
+        for r in loop.stream:
+            if r["kind"] == "recover":
+                if since is not None:
+                    replay.append(None)
+                since = r
+            elif r["kind"] == "prefill" and since is not None:
+                replay.append(r["wall_s"])
+                since = None
+        if since is not None:
+            replay.append(None)
+        return {"records": _kind_counts(loop.stream),
+                "finish": [r.finish_reason for r in report.results],
+                "n_faults": report.n_faults,
+                "n_injected_faults": report.n_injected_faults,
+                "n_retries": report.n_retries,
+                "n_recoveries": report.n_recoveries,
+                "n_degrades": report.n_degrades,
+                "n_preemptions": report.n_preemptions,
+                "recover_s": recover_s, "replay_prefill_s": replay}
+
+    def toks_of(report):
+        return {r.request_id: r.tokens.tolist() for r in report.results}
+
+    t_phase = time.perf_counter()
+    # -- the fault-free prompt-lookup serve the chaos run is held to
+    lookup_loop = loop_for("prompt_lookup")
+    lookup_rep = lookup_loop.run()
+    no_fault_guard(lookup_rep, lookup_loop.stream, "serve_chaos")
+    lookup_toks = toks_of(lookup_rep)
+    engine = lookup_loop.engine
+
+    # -- 1: seeded chaos
+    inj = serving.FaultInjector(seed=0, rates=CHAOS_RATES, max_faults=10)
+    loop = loop_for("prompt_lookup", faults=inj, max_step_retries=1,
+                    max_recoveries=50, kernel_fault_limit=0)
+    report, per_step, recover_s = run(loop)
+    launches = launch_counts()
+    chaos = summary(loop, report, recover_s)
+    got = toks_of(report)
+    partial = {r.request_id for r in report.results
+               if r.finish_reason in ("cancelled", "failed")}
+    chaos["flips"] = _stream_parts(torch, np, engine, raw, got, lookup_toks,
+                                   cache_T, ("chaos", "fault_free"), partial)
+    chaos["injected"] = [[s, n] for s, n, _ in inj.injected]
+    stream_sites = [r["site"] for r in loop.stream
+                    if r["kind"] == "fault" and r.get("injected")]
+    n_steps = {kd: sum(1 for r in loop.stream if r["kind"] == kd)
+               for kd in ("prefill", "decode", "verify")}
+    # a prefill whose install failed (an injected OOM or pool fault) ran
+    # its forward without a record: whole forwards only
+    k1_min = 7 * L * sum(n_steps.values())
+    chaos.update(launches=launches, records_by_step=n_steps,
+                 live_blocks_after=int(loop.cm.pool.n_live),
+                 accepted_tokens=report.accepted_tokens,
+                 drafted_tokens=report.drafted_tokens)
+    stepping = [d for kinds, d in _step_deltas(loop.stream, per_step)
+                if kinds & {"decode", "verify"}]
+    k1_last_step = stepping[-1]["bp_matmul"] if stepping else 0
+    chaos["k1_launches_last_step"] = k1_last_step
+    check_1 = [
+        (len(inj.injected) > 0, "the seeded injector fired no fault"),
+        (stream_sites == [s for s, _, _ in inj.injected],
+         f"injections {chaos['injected']} against the stream's {stream_sites}"),
+        (all(f in ("length", "cancelled", "failed") for f in chaos["finish"]),
+         f"finish reasons {chaos['finish']}"),
+        (chaos["live_blocks_after"] == 0,
+         f"{chaos['live_blocks_after']} blocks leaked"),
+        (launches["bp_matmul"] >= k1_min
+         and (launches["bp_matmul"] - k1_min) % (7 * L) == 0,
+         f"K1 launched {launches['bp_matmul']} times for {n_steps}"),
+        (launches["paged_attention"] == L * n_steps["decode"],
+         f"K2 launched {launches['paged_attention']} times for "
+         f"{n_steps['decode']} classic decodes"),
+        (k1_last_step > 0, "K1 did not launch on the run's last step"),
+        (not any(r["kind"] == "degrade" and r["action"] == "plain_fallback"
+                 for r in loop.stream),
+         "the kernel rung fired with kernel_fault_limit 0")]
+
+    # -- 2: the kernel rung, scheduled
+    inj2 = serving.FaultInjector(schedule=[("step", 0), ("step", 2)])
+    loop2 = loop_for(faults=inj2, max_step_retries=0)
+    report2, per_step2, recover_s2 = run(loop2)
+    rung = summary(loop2, report2, recover_s2)
+    degrades = [(i, r) for i, r in enumerate(loop2.stream)
+                if r["kind"] == "degrade"]
+    at = [c for n, c in per_step2
+          if any(r["kind"] == "degrade" for r in loop2.stream[:n])]
+    final2 = launch_counts()
+    rung.update(degrade_actions=[r["action"] for _, r in degrades],
+                launches_at_rung=at[0] if at else None,
+                launches=final2,
+                executor_backend=loop2.executor.cfg.matmul_backend,
+                engine_backend=loop2.engine.executor.cfg.matmul_backend)
+    rung["flips"] = _stream_parts(torch, np, engine, raw, toks_of(report2),
+                                  base_toks, cache_T, ("rung", "serve_paged"))
+    check_2 = [
+        ([r["action"] for _, r in degrades] == ["plain_fallback"],
+         f"degrade records {rung['degrade_actions']}"),
+        (report2.n_degrades == 1, f"n_degrades {report2.n_degrades}"),
+        (bool(at) and at[0]["bp_matmul"] > 0
+         and at[0]["paged_attention"] > 0,
+         f"K1/K2 had not launched before the rung: {rung['launches_at_rung']}"),
+        (bool(at) and all(final2[kk] == at[0][kk]
+                          for kk in ("bp_matmul", "paged_attention")),
+         f"K1/K2 launched after the rung: {at[:1]} -> {final2}"),
+        (rung["executor_backend"] == "plain", "the rung left the kernels on"),
+        (rung["engine_backend"] == cfg.matmul_backend,
+         f"the rung changed the engine's backend to {rung['engine_backend']}"),
+        (all(f == "length" for f in rung["finish"]),
+         f"finish reasons {rung['finish']}")]
+
+    # -- 3: the watchdog
+    inj3 = serving.FaultInjector(rates={"slow": 1.0}, max_faults=1,
+                                 slow_s=CHAOS_SLOW_S)
+    loop3 = loop_for(faults=inj3, step_timeout_s=CHAOS_STEP_TIMEOUT_S,
+                     max_step_retries=0)
+    report3, _, recover_s3 = run(loop3)
+    watchdog = summary(loop3, report3, recover_s3)
+    stuck = _join_watchdogs(threading)
+    # the abandoned step's late launches are counted too
+    final3 = launch_counts()
+    watchdog["launches"] = final3
+    kinds3 = [(r["kind"], r.get("error", "")) for r in loop3.stream
+              if r["kind"] in ("fault", "recover")]
+    watchdog.update(fault_then_recover=[kd for kd, _ in kinds3],
+                    slow_s=CHAOS_SLOW_S,
+                    step_timeout_s=CHAOS_STEP_TIMEOUT_S,
+                    abandoned_still_running=stuck)
+    watchdog["flips"] = _stream_parts(torch, np, engine, raw,
+                                      toks_of(report3), base_toks, cache_T,
+                                      ("watchdog", "serve_paged"))
+    check_3 = [
+        (len(kinds3) == 3 and kinds3[0] == ("fault", "")
+         and "StepTimeout" in kinds3[1][1] and kinds3[2][0] == "recover",
+         f"fault and recover records {kinds3}"),
+        (report3.n_recoveries == 1, f"recoveries {report3.n_recoveries}"),
+        (all(f == "length" for f in watchdog["finish"]),
+         f"finish reasons {watchdog['finish']}"),
+        (not stuck, f"watchdog workers still running: {stuck}")]
+    reset_counts()
+
+    total = {kk: launches[kk] + final2[kk] + final3[kk] for kk in launches}
+    result = {
+        "phase": "serve_chaos", "gpu": gpu, "model": cfg.name,
+        "layers": L, "mode": cfg.matmul_mode,
+        "kv_cache_int8": cfg.kv_cache_int8, "cache_backend": "paged",
+        "block_size": block_size, "num_blocks": num_blocks,
+        "n_requests": n_requests, "n_slots": n_slots, "cache_T": cache_T,
+        "rates": CHAOS_RATES, "chaos": chaos, "kernel_rung": rung,
+        "watchdog": watchdog,
+        "fault_free_lookup_flips_vs_serve_paged": _stream_flips(
+            torch, np, engine, raw, lookup_toks, base_toks, cache_T,
+            ("lookup", "serve_paged")),
+        "serve_paged_decode_step_ms_p50": base["decode_step_ms_p50"],
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    for cond, msg in check_1:
+        check(cond, f"serve_chaos (chaos): {msg}")
+    for cond, msg in check_2:
+        check(cond, f"serve_chaos (kernel rung): {msg}")
+    for cond, msg in check_3:
+        check(cond, f"serve_chaos (watchdog): {msg}")
+    for name, part in (("chaos", chaos), ("kernel rung", rung),
+                       ("watchdog", watchdog)):
+        bad = [f for f in part["flips"] if not f["near_tie"]]
+        check(not bad, f"serve_chaos ({name}): streams differ beyond a "
+                       f"near-tie: {bad}")
+    return result, total
+
+
+def phase_serve_frontdoor(torch, gpu, model, base, base_toks, n_slots=4,
+                          lead_window=4, block_size=16,
+                          num_blocks=PAGED_NUM_BLOCKS, disconnect_after=4,
+                          stagger_s=0.15):
+    """The front door on the paged main path: two replicas, each its own
+    engine over one set of quantized weights and its own 36-block pool,
+    behind ``FrontDoor(policy="affinity")`` on 127.0.0.1 (an ephemeral
+    port).  Traffic from client threads, one request every ``stagger_s``:
+    the ``serve_paged`` requests (one shared 256-token system prompt), then
+    four requests sharing a second system prompt, so that both replicas
+    serve at once; every other request streams over SSE, and one streamed
+    client hangs up after ``disconnect_after`` tokens.  The router's spill
+    threshold lies above the request count, so each system prompt stays on
+    its home replica."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch import serving
+
+    cfg = model["cfg"].replace(kv_cache_int8=False)
+    params = model["params"]
+    L = cfg.num_layers
+    group_a = _paged_requests(serving, np.random.default_rng(1),
+                              cfg.vocab_size, 8)
+    group_b = _paged_requests(serving, np.random.default_rng(2),
+                              cfg.vocab_size, 4)
+    prompts = group_a + group_b
+    cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
+
+    def engine_for():
+        return serving.ServingEngine(
+            cfg, params, serving.ServeConfig(
+                max_new_tokens=32, temperature=0.0, cache_backend="paged",
+                block_size=block_size), device="cuda")
+
+    t_phase = time.perf_counter()
+    # -- a direct serve of the second group (the first group's is
+    # serve_paged's)
+    direct_b = guarded_serve(
+        engine_for(), _copies(serving, group_b), n_slots=n_slots,
+        cache_T=cache_T, num_blocks=num_blocks,
+        sched_cfg=serving.SchedulerConfig(lead_window=lead_window))
+    want = dict(base_toks)
+    want.update({len(group_a) + r.request_id: r.tokens.tolist()
+                 for r in direct_b.results})
+
+    replicas = [serving.Replica(
+        engine_for(), name=f"r{i}", n_slots=n_slots, cache_T=cache_T,
+        num_blocks=num_blocks,
+        sched_cfg=serving.SchedulerConfig(lead_window=lead_window))
+        for i in range(2)]
+    # the stream every replica worker launches on
+    streams = set()
+    for rep in replicas:
+        def hook(lp, inner=rep.loop.on_step_end):
+            streams.add(torch.cuda.current_stream().cuda_stream)
+            inner(lp)
+        rep.loop.on_step_end = hook
+    main_stream = torch.cuda.current_stream().cuda_stream
+    torch.cuda.synchronize()
+    reset_counts()
+    door = serving.FrontDoor(replicas, policy="affinity",
+                             max_imbalance=len(prompts)).start()
+    client = serving.FrontDoorClient("127.0.0.1", door.port)
+    results = [None] * len(prompts)
+    sent, arrived = [0.0] * len(prompts), [[] for _ in prompts]
+    errors = []
+    cut = 1                  # the streamed request whose client hangs up
+
+    def one(i):
+        r = prompts[i]
+        stream = i % 2 == 1
+        try:
+            sent[i] = time.perf_counter()
+            results[i] = client.generate(
+                r.prompt.tolist(), max_new_tokens=r.max_new_tokens,
+                stream=stream,
+                disconnect_after=disconnect_after if i == cut else None,
+                on_token=lambda tok, idx: arrived[i].append(
+                    time.perf_counter()))
+        except Exception as e:             # reported, then checked
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = []
+    try:
+        for i in range(len(prompts)):
+            t = threading.Thread(target=one, args=(i,),
+                                 name=f"client-{i}")
+            t.start()
+            threads.append(t)
+            time.sleep(stagger_s)
+        for t in threads:
+            t.join(timeout=600)
+        health = client.healthz()
+        stats = client.stats()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            s = [rep.stats() for rep in replicas]
+            if all(x["queue_depth"] == 0 and x["blocks_in_use"] == 0
+                   for x in s):
+                break
+            time.sleep(0.05)
+    finally:
+        reports = door.stop()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    wall_s = time.perf_counter() - t_phase
+
+    # -- the launches both replicas' step streams predict
+    want_l = {"gemv": 0, "tile": 0, "paged_attention": 0}
+    steps_ms, per_replica = [], {}
+    for rep in replicas:
+        routes, _ = matmul_routes(rep.loop.stream, 7 * L)
+        n_dec = sum(1 for r in rep.loop.stream if r["kind"] == "decode")
+        want_l["gemv"] += routes["gemv"]
+        want_l["tile"] += routes["tile"]
+        want_l["paged_attention"] += L * n_dec
+        ms = [1e3 * r["wall_s"] for r in rep.loop.stream
+              if r["kind"] == "decode"]
+        steps_ms += ms
+        p = serving.percentiles(ms, qs=(50, 90))
+        rrep = reports[rep.name]
+        per_replica[rep.name] = {
+            "requests": len(rrep.results), "decode_steps": n_dec,
+            "decode_step_ms_p50": p["p50"] if p else None,
+            "decode_step_ms_p90": p["p90"] if p else None,
+            "prefix_hit_blocks": rrep.prefix_hit_blocks,
+            "n_preemptions": rrep.n_preemptions,
+            "n_cancelled": rrep.n_cancelled,
+            "live_blocks_after": int(rep.loop.cm.pool.n_live),
+            "engine_ttft_wall": rrep.ttft_wall,
+            "engine_itl_wall": rrep.itl_wall}
+    want_l["bp_matmul"] = want_l["gemv"] + want_l["tile"]
+
+    # -- what the clients saw, against the engines' own stamps
+    by_id = {(rep.name, int(r.request_id)): r
+             for rep in replicas for r in rep.loop.requests}
+    got, ttft, gaps, added = {}, [], [], []
+    for i, res in enumerate(results):
+        if res is None:
+            continue
+        got[i] = [int(t) for t in res["tokens"]]
+        eng_req = by_id.get((res["replica"], int(res["request_id"])))
+        if i % 2 == 1 and arrived[i]:
+            ttft.append(arrived[i][0] - sent[i])
+            gaps += [b - a for a, b in zip(arrived[i], arrived[i][1:])]
+            if eng_req is not None:
+                added += [c - e for c, e in zip(arrived[i],
+                                                eng_req.wall_token_times)]
+    cancelled = [(name, r.request_id) for name, rr in reports.items()
+                 for r in rr.results if r.finish_reason == "cancelled"]
+    flips = _stream_parts(torch, np, replicas[0].engine,
+                          [r.prompt for r in prompts], got, want, cache_T,
+                          ("door", "direct"), partial={cut})
+    homes = {g: sorted({results[i]["replica"] for i in ids
+                        if results[i] is not None})
+             for g, ids in (("a", range(len(group_a))),
+                            ("b", range(len(group_a), len(prompts))))}
+
+    def pct(xs):
+        p = serving.percentiles([1e3 * x for x in xs], qs=(50, 90))
+        return None if p is None else {k: v for k, v in p.items()}
+
+    result = {
+        "phase": "serve_frontdoor", "gpu": gpu, "model": cfg.name,
+        "layers": L, "mode": cfg.matmul_mode,
+        "kv_cache_int8": cfg.kv_cache_int8, "cache_backend": "paged",
+        "block_size": block_size, "num_blocks_per_replica": num_blocks,
+        "replicas": 2, "policy": "affinity", "n_requests": len(prompts),
+        "streamed": len(prompts) // 2, "n_slots": n_slots,
+        "cache_T": cache_T, "stagger_s": stagger_s,
+        "healthz": health, "router": {k: v for k, v in stats.items()
+                                      if k != "replicas"},
+        "homes": homes, "per_replica": per_replica,
+        "launches": launches, "expected_launches": want_l,
+        "worker_streams_equal_main": streams == {main_stream},
+        "cancelled": cancelled,
+        "disconnected_tokens": len(got.get(cut, [])),
+        "flips": flips, "client_errors": errors,
+        "client_ttft_ms": pct(ttft), "client_itl_ms": pct(gaps),
+        "door_added_ms_per_token": pct(added),
+        "door_decode_step_ms": pct([x / 1e3 for x in steps_ms]),
+        "serve_paged_decode_step_ms_p50": base["decode_step_ms_p50"],
+        "serve_paged_decode_step_ms_p90": base["decode_step_ms_p90"],
+        "serve_paged_ttft_ms": pct([t for t in base["ttft_wall_s_by_request"]
+                                    if t is not None]),
+        "serve_paged_itl_wall": base["itl_wall_s"],
+        "wall_s": wall_s,
+    }
+    emit(result)
+    check(not errors, f"serve_frontdoor: client errors {errors}")
+    check(health == {"ok": True}, f"serve_frontdoor: /healthz {health}")
+    check(len(stats.get("replicas", [])) == 2,
+          f"serve_frontdoor: /v1/stats {stats}")
+    check(streams == {main_stream},
+          f"serve_frontdoor: replica workers launched on streams {streams}, "
+          f"the loop's is {main_stream}")
+    check(results[cut] is not None and results[cut]["disconnected"],
+          "serve_frontdoor: the hung-up client was not disconnected")
+    cut_id = (results[cut]["replica"], results[cut]["request_id"])
+    check(cancelled == [cut_id], f"serve_frontdoor: cancelled {cancelled}, "
+                                 f"expected the hung-up request {cut_id}")
+    for name, rr in reports.items():
+        rep = next(r for r in replicas if r.name == name)
+        no_fault_guard(rr, rep.loop.stream, f"serve_frontdoor {name}")
+        check(all(r.finish_reason in ("length", "cancelled")
+                  for r in rr.results),
+              f"serve_frontdoor {name}: finish reasons "
+              f"{[r.finish_reason for r in rr.results]}")
+        check(per_replica[name]["live_blocks_after"] == 0,
+              f"serve_frontdoor {name}: "
+              f"{per_replica[name]['live_blocks_after']} blocks still live")
+    for g, names in homes.items():
+        check(len(names) == 1, f"serve_frontdoor: system prompt {g} landed "
+                               f"on {names}")
+        check(per_replica[names[0]]["prefix_hit_blocks"] > 0,
+              f"serve_frontdoor: no prefix hit on {names[0]}")
+    check(launches["bp_matmul"] == want_l["bp_matmul"]
+          and launches["bp_matmul_gemv"] == want_l["gemv"]
+          and launches["bp_matmul_tile"] == want_l["tile"]
+          and launches["paged_attention"] == want_l["paged_attention"],
+          f"serve_frontdoor: launches {launches}, the replicas' streams "
+          f"predict {want_l}")
+    bad = [f for f in flips if not f["near_tie"]]
+    check(not bad, f"serve_frontdoor: streams differ from a direct serve "
+                   f"beyond a near-tie: {bad}")
+    reset_counts()
     return result, launches
 
 
@@ -2137,7 +2739,7 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
     kw = dict(n_slots=n_slots, cache_T=cache_T, sched_cfg=sched)
     # warm-up serve (allocator, one kernel-route and one step-route
     # prefill): not measured
-    engine.serve(_copies(serving, prompts)[2:4], **kw)
+    guarded_serve(engine, _copies(serving, prompts)[2:4], **kw)
     torch.cuda.synchronize()
 
     # -- the measured main-path run: counts zeroed just before, read after
@@ -2146,6 +2748,7 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
     reset_counts()
     loop = engine.make_loop(_copies(serving, prompts), **kw)
     report = loop.run()
+    no_fault_guard(report, loop.stream, "serve_rwkv")
     torch.cuda.synchronize()
     launches = launch_counts()
     peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2177,7 +2780,7 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
     plain = serving.ServingEngine(cfg.replace(matmul_backend="plain"),
                                   params, scfg, device="cuda")
     plain_states = _capture_prefill_states(plain.executor)
-    rep_plain = plain.serve(_copies(serving, prompts), **kw)
+    rep_plain = guarded_serve(plain, _copies(serving, prompts), **kw)
     del plain.executor.prefill
     plain_launches = launch_counts()
     reset_counts()
@@ -2330,8 +2933,8 @@ def _profile_serve(torch, engine, requests, n_slots, cache_T, sched,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rep = engine.serve(requests, n_slots=n_slots, cache_T=cache_T,
-                           sched_cfg=sched, **serve_kw)
+        rep = guarded_serve(engine, requests, n_slots=n_slots,
+                            cache_T=cache_T, sched_cfg=sched, **serve_kw)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
@@ -2361,8 +2964,11 @@ def _flip(torch, np, engine, prompt, serve_toks, gen_toks, cache_T, rid,
     within 4 bf16 units in the last place (at the top logit's magnitude),
     or within ``tie`` if that is larger, of the top logit.  ``names``
     label the two streams."""
-    j = next(k for k in range(min(len(serve_toks), len(gen_toks)))
-             if serve_toks[k] != gen_toks[k])
+    j = next((k for k in range(min(len(serve_toks), len(gen_toks)))
+              if serve_toks[k] != gen_toks[k]), None)
+    if j is None:       # one stream ends early: no token to compare
+        return {"request": rid, "lengths": [len(serve_toks), len(gen_toks)],
+                "near_tie": False}
     seq = np.concatenate([prompt, np.asarray(serve_toks[:j], np.int32)])
     logits, _ = engine.executor.prefill({"tokens": seq[None]}, cache_T)
     lg = logits[0].float()
@@ -2670,6 +3276,12 @@ def main() -> int:
         probed, probe_launches = phase_serve_probe(
             torch, gpu, model, paged, paged_toks, paged_launches)
         records.append({"serve_probe": probed})
+        chaos, chaos_launches = phase_serve_chaos(torch, gpu, model, paged,
+                                                  paged_toks)
+        records.append({"serve_chaos": chaos})
+        door, door_launches = phase_serve_frontdoor(torch, gpu, model,
+                                                    paged, paged_toks)
+        records.append({"serve_frontdoor": door})
         del model
         rwkv = build_rwkv(torch)
         serve_rwkv, rwkv_launches, rwkv_shape = phase_serve_rwkv(
@@ -2685,6 +3297,8 @@ def main() -> int:
                  "serve_spec": spec_launches,
                  "serve_chunked": chunked_launches,
                  "serve_probe": probe_launches,
+                 "serve_chaos": chaos_launches,
+                 "serve_frontdoor": door_launches,
                  "serve_rwkv": rwkv_launches}
         pa = paged_layer_summary(torch, flush, paged_shape, paged_launches)
         for entry, key in ((bp, "bp_matmul_gemv"), (tile, "bp_matmul_tile"),

@@ -18,7 +18,12 @@ Decode calls (at most :data:`GEMV_MAX_M` rows) take the kernel's split-K
 GEMV, whose K slices :func:`gemv_plan` chooses from the shapes alone.  Its
 split sums meet in an int32 workspace that the kernel leaves zeroed
 (:func:`_workspace`, one per device, grown on demand); calls on one device
-must therefore run on one stream at a time, as the serving path does.
+must therefore run on one stream at a time.  The serving path launches on
+PyTorch's current stream, which is the device's default stream in every
+thread (serve loops, their watchdog workers, front-door replicas), so the
+calls of several host threads queue on that one stream in order.  The
+workspace's growth and the launch counts are guarded by a lock, as host
+state that several threads update.
 Prefill calls (more rows) take the tensor-core tile kernels, whose tiles,
 K split and ring :func:`tile_plan` chooses; the K slices of one output
 tile run as a thread block cluster and sum through its shared memory.
@@ -34,11 +39,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.bitparticle_matmul import ref
+from repro_torch.kernels.build import KernelError, KernelInputError
 
 BACKENDS = ("auto", "plain", "kernel")
 
@@ -88,6 +95,7 @@ TILE_SPLIT_FILL = 1.5
 TILE_MAX_SLICE = 64
 
 _WORKSPACE: dict = {}
+_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -195,13 +203,14 @@ def _workspace(dev: torch.device, m: int, n: int):
     counters (at most one per 4 columns), kept per device; the kernel
     leaves both zero again."""
     tiles = -(-n // GEMV_WARP_COLS)
-    ws, cnt = _WORKSPACE.get(dev, (None, None))
-    if ws is None or ws.numel() < m * n or cnt.numel() < tiles:
-        ws = torch.zeros(max(m * n, 0 if ws is None else ws.numel()),
-                         dtype=torch.int32, device=dev)
-        cnt = torch.zeros(max(tiles, 0 if cnt is None else cnt.numel()),
-                          dtype=torch.int32, device=dev)
-        _WORKSPACE[dev] = (ws, cnt)
+    with _LOCK:
+        ws, cnt = _WORKSPACE.get(dev, (None, None))
+        if ws is None or ws.numel() < m * n or cnt.numel() < tiles:
+            ws = torch.zeros(max(m * n, 0 if ws is None else ws.numel()),
+                             dtype=torch.int32, device=dev)
+            cnt = torch.zeros(max(tiles, 0 if cnt is None else cnt.numel()),
+                              dtype=torch.int32, device=dev)
+            _WORKSPACE[dev] = (ws, cnt)
     return ws, cnt
 
 
@@ -210,7 +219,8 @@ def _use_kernel(a_q: torch.Tensor, backend: str) -> bool:
         return False
     if backend == "kernel":
         if not a_q.is_cuda:
-            raise ValueError("matmul backend 'kernel' needs CUDA tensors")
+            raise KernelInputError(
+                "matmul backend 'kernel' needs CUDA tensors")
         return True
     if backend == "auto":
         return a_q.is_cuda
@@ -296,8 +306,9 @@ def bp_matmul(a_q: torch.Tensor, w_q: torch.Tensor,
         rc = launch(*ptrs, m, n, k, int(approx), int(fuse), int(vec), *args,
                     ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"bp_matmul kernel launch failed ({route}): CUDA "
-                           f"error {rc}")
-    LAUNCHES["bp_matmul"] += 1
-    LAUNCHES[route] += 1
+        raise KernelError(f"bp_matmul kernel launch failed ({route}): CUDA "
+                          f"error {rc}")
+    with _LOCK:
+        LAUNCHES["bp_matmul"] += 1
+        LAUNCHES[route] += 1
     return out.reshape(*lead, n)

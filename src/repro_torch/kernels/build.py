@@ -43,6 +43,17 @@ def _nvcc() -> str:
                        "built on this machine")
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel could not run: its launch failed, or it was
+    asked for where it cannot run.  The serving path never retries,
+    recovers from or hides it: it raises out of the serve."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """The ``kernel`` backend asked for on tensors the kernel cannot take
+    (CPU tensors): a caller's error as well as a kernel fault."""
+
+
 class CudaLibrary:
     """One kernel's shared library: built on first :meth:`load`, then
     bound by ``bind(lib)`` (which sets ``argtypes``/``restype``)."""

@@ -21,7 +21,9 @@ shapes only by :func:`split_plan` (the lengths stay on the device); the
 last block of a (sequence, kv head) merges the splits through an int32
 arrival counter that the kernel leaves zeroed (:func:`_counters`, one
 buffer per device, grown on demand), so calls on one device must run on one
-stream at a time, as the serving path does.
+stream at a time: every host thread of the serving path launches on the
+device's default stream (see ``bitparticle_matmul/ops.py``), and the
+buffer's growth and the counts are guarded by a lock.
 
 The split-KV ``return_state`` variant of the reference (the mesh's
 flash-decoding merge) is not ported.
@@ -31,9 +33,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
+from repro_torch.kernels.build import KernelError, KernelInputError
 from repro_torch.kernels.paged_attention import ref
 
 BACKENDS = ("auto", "plain", "kernel")
@@ -63,6 +67,7 @@ LAUNCHES = {"paged_attention": 0}
 ROUTED_PLAIN = {"int8_kv": 0}
 
 _COUNTERS: dict = {}
+_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -79,14 +84,15 @@ def _use_kernel(q: torch.Tensor, backend: str, scaled: bool) -> bool:
                              "only; int8 KV scale pages take the 'plain' or "
                              "'auto' backend")
         if not q.is_cuda:
-            raise ValueError("paged-attention backend 'kernel' needs CUDA "
-                             "tensors")
+            raise KernelInputError("paged-attention backend 'kernel' needs "
+                                   "CUDA tensors")
         return True
     if backend == "auto":
         if not q.is_cuda:
             return False
         if scaled:
-            ROUTED_PLAIN["int8_kv"] += 1
+            with _LOCK:
+                ROUTED_PLAIN["int8_kv"] += 1
             return False
         return True
     raise ValueError(f"unknown paged-attention backend {backend!r}; "
@@ -130,10 +136,11 @@ def _sm_count(dev: torch.device) -> int:
 def _counters(dev: torch.device, n: int) -> torch.Tensor:
     """Zeroed int32 arrival counters, kept per device; the kernel leaves
     them zero again."""
-    cnt = _COUNTERS.get(dev)
-    if cnt is None or cnt.numel() < n:
-        cnt = torch.zeros(n, dtype=torch.int32, device=dev)
-        _COUNTERS[dev] = cnt
+    with _LOCK:
+        cnt = _COUNTERS.get(dev)
+        if cnt is None or cnt.numel() < n:
+            cnt = torch.zeros(n, dtype=torch.int32, device=dev)
+            _COUNTERS[dev] = cnt
     return cnt
 
 
@@ -209,7 +216,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             ctypes.c_void_p(0 if cnt is None else cnt.data_ptr()),
             ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {rc}")
-    LAUNCHES["paged_attention"] += 1
+        raise KernelError(f"paged_attention kernel launch failed: CUDA "
+                          f"error {rc}")
+    with _LOCK:
+        LAUNCHES["paged_attention"] += 1
     return out

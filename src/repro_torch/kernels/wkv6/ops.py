@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.build import KernelError, KernelInputError
 from repro_torch.kernels.wkv6 import ref
 
 BACKENDS = ("auto", "plain", "kernel")
@@ -52,7 +53,7 @@ def _use_kernel(x: torch.Tensor, backend: str) -> bool:
         return False
     if backend == "kernel":
         if not x.is_cuda:
-            raise ValueError("wkv6 backend 'kernel' needs CUDA tensors")
+            raise KernelInputError("wkv6 backend 'kernel' needs CUDA tensors")
         return True
     if backend == "auto":
         return x.is_cuda
@@ -207,7 +208,7 @@ def wkv6_rows(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             R, T, N, chunk, plan.row_split, plan.col_blocks, code,
             plan.smem_state, plan.smem_chunk, ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {rc}")
+        raise KernelError(f"wkv6 kernel launch failed: CUDA error {rc}")
     LAUNCHES["wkv6"] += 1
     return out, s_out
 

@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.models import api
 from repro_torch.serving.cache_manager import BaseCacheManager
+from repro_torch.serving.faults import NULL_INJECTOR, InjectedFault
 
 TRASH_BLOCK = 0  # reserved scratch block id (never allocated, never shared)
 
@@ -47,6 +48,15 @@ TRASH_BLOCK = 0  # reserved scratch block id (never allocated, never shared)
 class NoFreeBlocks(RuntimeError):
     """Raised when an allocation cannot be satisfied even after evicting
     every unreferenced cached block (the engine preempts a request then)."""
+
+
+class InjectedPoolExhaustion(NoFreeBlocks, InjectedFault):
+    """Injected pool exhaustion: rides the normal ``NoFreeBlocks``
+    preempt-and-retry path, but, being an :class:`InjectedFault`, stays
+    recoverable when no preemption victim exists (a REAL exhaustion with
+    no victim is a sizing error and keeps raising)."""
+
+    site = "pool"
 
 
 class BlockPool:
@@ -57,13 +67,14 @@ class BlockPool:
     the block ids this pool hands out.
     """
 
-    def __init__(self, num_blocks: int, block_size: int):
+    def __init__(self, num_blocks: int, block_size: int, *, faults=None):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is reserved)")
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
         self.num_blocks = num_blocks
         self.block_size = block_size
+        self.faults = faults if faults is not None else NULL_INJECTOR
         # block 0 is the trash block; ids [1, num_blocks) are allocatable
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))
         self.refcount = np.zeros(num_blocks, np.int32)
@@ -99,6 +110,8 @@ class BlockPool:
     def alloc(self) -> int:
         """Allocate a private (refcount 1, unregistered) block; evicts the
         LRU cached prefix block if the free list is empty."""
+        if self.faults.fire("pool"):
+            raise InjectedPoolExhaustion("injected pool exhaustion")
         if self._free:
             bid = self._free.pop()
         elif self._cached:
@@ -242,7 +255,7 @@ class PagedCacheManager(BaseCacheManager):
 
     def __init__(self, cfg, n_slots: int, cache_T: int, *,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 executor, telemetry=None):
+                 executor, telemetry=None, faults=None):
         from repro_torch.serving.telemetry import NULL_TELEMETRY
         if api.is_recurrent(cfg):
             raise ValueError(
@@ -257,7 +270,7 @@ class PagedCacheManager(BaseCacheManager):
             num_blocks = n_slots * self.blocks_per_seq + 1
         super().__init__(cfg, n_slots)
         self.num_blocks = num_blocks
-        self.pool = BlockPool(num_blocks, block_size)
+        self.pool = BlockPool(num_blocks, block_size, faults=faults)
         # device ops (page allocation, the in-place scatter insert and the
         # copy-on-write block copy) live behind the executor
         self.executor = executor

@@ -127,11 +127,13 @@ class CacheManager(BaseCacheManager):
 def make_cache_manager(cfg, n_slots: int, cache_T: int, *,
                        backend: str = "slab", block_size: int = 16,
                        num_blocks: Optional[int] = None, executor,
-                       telemetry=None) -> BaseCacheManager:
+                       telemetry=None, faults=None) -> BaseCacheManager:
     """Build the backing store selected by ``backend``, with its device ops
-    routed through ``executor`` and its spans on ``telemetry`` (None ->
-    no-op).  ``block_size`` and ``num_blocks`` size the paged pool
-    (``num_blocks`` None: the slab's footprint)."""
+    routed through ``executor``, its spans on ``telemetry`` (None ->
+    no-op) and, paged only, its pool allocations checked against the
+    ``faults`` injector (None -> no-op).  ``block_size`` and
+    ``num_blocks`` size the paged pool (``num_blocks`` None: the slab's
+    footprint)."""
     if backend == "slab":
         return CacheManager(cfg, n_slots, cache_T, executor=executor,
                             telemetry=telemetry)
@@ -139,7 +141,8 @@ def make_cache_manager(cfg, n_slots: int, cache_T: int, *,
         from repro_torch.serving.block_pool import PagedCacheManager
         return PagedCacheManager(cfg, n_slots, cache_T,
                                  block_size=block_size, num_blocks=num_blocks,
-                                 executor=executor, telemetry=telemetry)
+                                 executor=executor, telemetry=telemetry,
+                                 faults=faults)
     raise ValueError(f"unknown cache_backend {backend!r}; "
                      f"expected 'slab' or 'paged'")
 

@@ -32,16 +32,37 @@ through the paper's cost models into an ``hw_estimate`` record
 (``ServeReport.hw_measured``); ``ServeReport.deployment`` prices the int8
 weights alone.
 
-Not ported yet, and refused with ``NotImplementedError`` when asked for:
-fault injection and its recovery ladder (retry, rebuild-and-replay, the
-watchdog, the drafter and kernel fault rungs), and mesh serving.  Of the
-degradation ladder only the pool-pressure rung (``pool_pressure_limit``)
-is ported.
+Robustness: a ``FaultInjector`` (``ServeConfig.faults``) fires seeded
+faults at the reference's sites, checked in the reference's order, so one
+seed replays the same schedule in both.  Every device dispatch runs behind
+``ServeLoop._dispatch``: immediate bounded retry of injected transients,
+other failures wrapped into ``StepFault``, and with ``step_timeout_s`` a
+wall-clock watchdog.  A failure that escapes is recovered by
+rebuild-and-replay (``ServeLoop.recover``: every active request preempted
+for token-exact replay, a fresh store), within ``max_recoveries``; past it
+every in-flight request fails and the serve returns.  The degradation
+ladder's rungs: repeated drafter faults disable speculation, repeated
+recoveries from injected faults move the serve's kernels to their plain
+versions (``degrade`` record ``action="plain_fallback"``, the reference's
+``"xla_fallback"``), and sustained pool pressure halves the lead window.
+
+A kernel fault is never recovered and never hidden: a hand-written
+kernel's own error (``KernelError``: a failed launch, or the kernel asked
+for where it cannot run) and a CUDA runtime error (``AcceleratorError``,
+which poisons the context) raise out of the serve.  So the kernel rung
+fires only on injected faults, where chaos testing schedules it, and it
+holds for the rest of its serve alone: the loop takes a copy of the
+executor on the plain backend, and the engine's executor, with every later
+serve of the engine, keeps the engine's backend.
+
+Mesh serving is not ported yet, and refused with ``NotImplementedError``
+when asked for.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import threading
 import time
@@ -53,6 +74,7 @@ import torch
 from repro_torch.core import cost_model as cost
 from repro_torch.core.sparsity import per_layer_counts, sm_bit_counts
 from repro_torch.device import resolve_device
+from repro_torch.kernels.build import KernelError
 from repro_torch.models import api
 from repro_torch.models.layers import quantize_dense_params
 from repro_torch.serving.block_pool import NoFreeBlocks, PagedCacheManager
@@ -60,6 +82,9 @@ from repro_torch.serving.cache_manager import make_cache_manager
 from repro_torch.serving.executor import (SingleDeviceExecutor,
                                           make_executor, sample_seed,
                                           sample_tokens)
+from repro_torch.serving.faults import (NULL_INJECTOR, DrafterFault,
+                                        FaultInjector, InjectedFault,
+                                        StepFault, StepTimeout)
 from repro_torch.serving.probe import (NULL_PROBE, SparsityProbe,
                                        int8_leaves, per_layer_weight_stats,
                                        probe_supported)
@@ -70,6 +95,21 @@ from repro_torch.serving.scheduler import (QuasiSyncScheduler,
 from repro_torch.serving.speculative import make_drafter
 from repro_torch.serving.telemetry import (SCHEMA_VERSION, Telemetry,
                                            percentiles, reduce_stream)
+
+#: errors the serve loop survives via rebuild-and-replay recovery: injected
+#: faults that exhausted their retry budget, watchdog aborts, and wrapped
+#: real executor failures.  Everything else (config/user errors) raises.
+RECOVERABLE_ERRORS = (InjectedFault, StepTimeout, StepFault)
+
+#: errors of the kernels and the device that no recovery may hide: a
+#: kernel's own failure, and a CUDA runtime error (sticky: every later call
+#: on the context fails too)
+KERNEL_ERRORS = (KernelError,) + ((torch.AcceleratorError,)
+                                  if hasattr(torch, "AcceleratorError")
+                                  else ())
+
+#: consecutive drafter faults before the drafter rung disables speculation
+DRAFTER_FAULT_LIMIT = 2
 
 
 @dataclasses.dataclass
@@ -101,10 +141,25 @@ class ServeConfig:
     # hardware-cost observability: a ``SparsityProbe``; None = NULL_PROBE
     # (no probed step runs)
     probe: Optional[SparsityProbe] = None
-    # the fields below select features that are not ported yet; anything
-    # but the default raises NotImplementedError when the engine is built
+    # fault injection: a ``FaultInjector`` threaded to the executor, the
+    # cache managers, the block pool and the drafter like the telemetry
+    # handle; None = the no-op NULL_INJECTOR
+    faults: Optional[FaultInjector] = None
+    # bounded, immediate retry on transient (injected) step faults
+    max_step_retries: int = 2
+    # rebuild-and-replay recoveries allowed per serve before the loop fails
+    # every in-flight request and returns
+    max_recoveries: int = 3
+    # wall-clock watchdog: abort any single dispatch exceeding this budget
+    # (None = no watchdog; the aborted step recovers like a failed one)
+    step_timeout_s: Optional[float] = None
+    # degradation ladder's kernel rung: recoveries from injected faults
+    # before the serve's kernels move to their plain versions (0 disables
+    # it; a real kernel fault raises instead)
+    kernel_fault_limit: int = 2
+    # mesh serving is not ported yet: anything but None raises
+    # NotImplementedError when the engine is built
     mesh_shape: Optional[Tuple[int, int]] = None
-    faults: Optional[object] = None
 
 
 def check_family(arch_cfg, serve_cfg: ServeConfig) -> None:
@@ -128,8 +183,6 @@ def check_ported(serve_cfg: ServeConfig) -> None:
     unported = []
     if serve_cfg.mesh_shape is not None:
         unported.append("mesh_shape")
-    if serve_cfg.faults is not None:
-        unported.append("faults")
     if unported:
         raise NotImplementedError(
             f"not ported yet: {', '.join(unported)}")
@@ -208,8 +261,8 @@ class ServeReport:
     n_failed: int = 0
     # chunked prefill: prompt tokens ingested through chunk steps
     chunk_tokens: int = 0
-    # fault and degradation records (of the ladder only the pool-pressure
-    # rung emits here)
+    # fault ledger: fault records (injected + detected), retries,
+    # degradation-ladder transitions, rebuild-and-replay recoveries
     n_faults: int = 0
     n_injected_faults: int = 0
     n_retries: int = 0
@@ -236,8 +289,9 @@ class ServeReport:
 class ServeLoop:
     """Host-side orchestration state of ONE ``serve()`` call: arrival
     submission, cancellation and deadline sweeps, admission, decode
-    stepping and the report.  Device work goes through
-    ``engine.executor``."""
+    stepping and the report.  Device work goes through ``self.executor``:
+    the engine's executor, or after the kernel rung this loop's copy of it
+    on the plain backend."""
 
     def __init__(self, engine: "ServingEngine", requests: Sequence[Request],
                  *, n_slots: int = 8, cache_T: Optional[int] = None,
@@ -277,6 +331,13 @@ class ServeLoop:
         self._wall0 = time.perf_counter()
         self._h2d_mark = int(self.tel.counters.get("h2d_bytes", 0))
         self._d2h_mark = int(self.tel.counters.get("d2h_bytes", 0))
+        # fault injection rides the config like telemetry; the executor
+        # gets the handle before any cache op can fire a check
+        self.faults: FaultInjector = (self.serve_cfg.faults
+                                      if self.serve_cfg.faults is not None
+                                      else NULL_INJECTOR)
+        self.faults.bind(self._emit_injected)
+        engine.executor.set_faults(self.faults)
         requests = sorted(requests,
                           key=lambda r: (r.arrival_time, r.request_id))
         self.requests = list(requests)
@@ -303,13 +364,11 @@ class ServeLoop:
         # prefill (cleared on preemption and eviction: replay restarts the
         # chunks)
         self.chunking: Dict[int, int] = {}
+        # constructor arguments kept so ``recover()`` can build a fresh store
         self.n_slots = n_slots
-        self.cm = make_cache_manager(engine.cfg, n_slots, cache_T,
-                                     backend=self.serve_cfg.cache_backend,
-                                     block_size=self.serve_cfg.block_size,
-                                     num_blocks=num_blocks,
-                                     executor=engine.executor,
-                                     telemetry=self.tel)
+        self._cache_T_arg = cache_T
+        self._num_blocks = num_blocks
+        self.cm = self._build_cm()
         self.paged = isinstance(self.cm, PagedCacheManager)
         # prefill caches must slice into whole blocks on the paged store
         self.cache_T = self.cm.prefill_T if self.paged else cache_T
@@ -345,33 +404,29 @@ class ServeLoop:
         self._inbox: List[Request] = []
         self._inbox_lock = threading.Lock()
         self._closed = False
+        # recovery and degradation-ladder counters
+        self.n_recoveries = 0
+        self._injected_recoveries = 0
+        self._drafter_faults = 0
+        # the watchdog's worker thread (made on first use, replaced after a
+        # timeout abandons it, shut down when the serve ends)
+        self._watchdog: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        #: optional streaming hook: called once per FRESHLY emitted token
+        #: with (request, token, index); replayed tokens after a preemption
+        #: or a recovery are not sent again, so a streaming consumer sees
+        #: each position exactly once
+        self.on_token: Optional[Callable[[Request, int, int], None]] = None
         # speculative decoding: a drafter proposes up to K tokens per slot,
         # one multi-token verify step checks them all, and each slot
         # commits 1..K+1 tokens per step
         self.drafter = make_drafter(self.serve_cfg, engine,
                                     n_slots=n_slots, cache_T=self.cache_T,
                                     telemetry=self.tel)
+        if self.drafter is not None:
+            self.drafter.faults = self.faults
         self.n_drafted = 0
         self.n_accepted = 0
-        self._decode_fn = engine.executor.decode_sample_fn(
-            self.serve_cfg.temperature, paged=self.paged)
-        # the verify entry point serves speculation and chunked prefill
-        # alike (a chunk row feeds known prompt tokens where a decode row
-        # feeds drafts)
-        need_verify = (self.drafter is not None
-                       or self.prefill_chunk is not None)
-        if need_verify:
-            self._verify_fn = engine.executor.verify_sample_fn(
-                paged=self.paged)
-        # the probed variants, swapped in on sampled steps; the unprobed
-        # functions above are the ones a probe-less serve runs
-        self._decode_probe_fn = self._verify_probe_fn = None
-        if self.probe.enabled:
-            self._decode_probe_fn = engine.executor.decode_sample_fn(
-                self.serve_cfg.temperature, paged=self.paged, probed=True)
-            if need_verify:
-                self._verify_probe_fn = engine.executor.verify_sample_fn(
-                    paged=self.paged, probed=True)
+        self._bind_step_fns()
         self._emit("run", cache_backend=str(self.serve_cfg.cache_backend),
                    n_slots=int(n_slots), cache_T=int(self.cache_T),
                    draft=str(self.serve_cfg.draft),
@@ -379,6 +434,39 @@ class ServeLoop:
                    mesh_shape=None,
                    block_size=int(self.serve_cfg.block_size),
                    probe_every=int(self.probe.probe_every))
+
+    def _build_cm(self):
+        return make_cache_manager(self.engine.cfg, self.n_slots,
+                                  self._cache_T_arg,
+                                  backend=self.serve_cfg.cache_backend,
+                                  block_size=self.serve_cfg.block_size,
+                                  num_blocks=self._num_blocks,
+                                  executor=self.executor,
+                                  telemetry=self.tel, faults=self.faults)
+
+    def _bind_step_fns(self):
+        """(Re-)fetch the step functions from the executor: at construction
+        and after a recovery."""
+        ex = self.executor
+        self._decode_fn = ex.decode_sample_fn(self.serve_cfg.temperature,
+                                              paged=self.paged)
+        # the verify entry point serves speculation and chunked prefill
+        # alike (a chunk row feeds known prompt tokens where a decode row
+        # feeds drafts); it stays bound while either needs it, since the
+        # ladder may drop the drafter mid-run with chunking still on
+        need_verify = (self.drafter is not None
+                       or self.prefill_chunk is not None)
+        if need_verify:
+            self._verify_fn = ex.verify_sample_fn(paged=self.paged)
+        # the probed variants, swapped in on sampled steps; the unprobed
+        # functions above are the ones a probe-less serve runs
+        self._decode_probe_fn = self._verify_probe_fn = None
+        if self.probe.enabled:
+            self._decode_probe_fn = ex.decode_sample_fn(
+                self.serve_cfg.temperature, paged=self.paged, probed=True)
+            if need_verify:
+                self._verify_probe_fn = ex.verify_sample_fn(
+                    paged=self.paged, probed=True)
 
     # -- telemetry plumbing --------------------------------------------------
 
@@ -393,6 +481,13 @@ class ServeLoop:
     def _on_reject(self, req: Request):
         self._emit("reject", step=int(self.sched.n_decode_steps),
                    request_id=int(req.request_id))
+
+    def _emit_injected(self, site: str, **ctx) -> None:
+        """The injector's telemetry callback: every fired injection becomes
+        a ``fault`` record with ``injected=True``, so the stream accounts
+        for each one."""
+        self._emit("fault", step=int(self.sched.n_decode_steps), site=site,
+                   injected=True, **ctx)
 
     def _byte_deltas(self) -> Tuple[int, int]:
         c = self.tel.counters
@@ -457,6 +552,12 @@ class ServeLoop:
 
     # -- lifecycle: cancellation + deadlines --------------------------------
 
+    def _live_requests(self) -> List[Request]:
+        """Every request still in flight: not yet submitted, waiting, or
+        active in a slot."""
+        return (list(self.arrivals) + list(self.rq.peek())
+                + list(self.active.values()))
+
     def _evict(self, slot: int) -> Request:
         """Remove ``slot``'s request from the batch and release what it
         holds (cache slot or block table, chunk state, drafter state)."""
@@ -468,8 +569,12 @@ class ServeLoop:
         return req
 
     def sweep(self):
-        """Apply API-requested cancellations, then expire requests whose
-        wall-clock deadline passed; evicted actives free their slot now."""
+        """Collect injector- and API-requested cancellations and apply
+        them, then expire requests whose wall-clock deadline passed;
+        evicted actives free their slot now."""
+        if self.faults.enabled:
+            live = [int(r.request_id) for r in self._live_requests()]
+            self._cancel_ids.update(self.faults.cancel_requests(live))
         pending = self.engine._pending_cancels
         if pending:
             self._cancel_ids.update(pending)
@@ -527,11 +632,93 @@ class ServeLoop:
                 self._finish_evicted(req, "timeout", "timeout", "active",
                                      deadline=which)
 
+    # -- fault-hardened dispatch --------------------------------------------
+
+    def _with_watchdog(self, fn):
+        """Run one device dispatch under the wall-clock watchdog.  The call
+        runs on the loop's worker thread, launching on the loop's current
+        stream; what is timed is the host call up to its first
+        synchronizing read (the sampled tokens' copy to the host for a
+        decode or verify step, a device synchronize for a prefill).  Past
+        the budget the loop raises :class:`StepTimeout`, abandons the
+        worker to the call and recovery builds a fresh store.  The
+        abandoned call runs on and writes its step into the OLD store's
+        tensors, which the loop never reads again."""
+        budget = self.serve_cfg.step_timeout_s
+        if budget is None:
+            return fn()
+        dev = self.executor.device
+        stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                  else None)
+
+        def run():
+            if stream is None:
+                return fn()
+            with torch.cuda.stream(stream):
+                return fn()
+
+        if self._watchdog is None:
+            self._watchdog = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="serve-watchdog")
+        fut = self._watchdog.submit(run)
+        try:
+            return fut.result(timeout=budget)
+        except concurrent.futures.TimeoutError:
+            self._stop_watchdog()
+            raise StepTimeout(
+                f"step exceeded the {budget:g}s watchdog budget") from None
+
+    def _stop_watchdog(self) -> None:
+        """Let the worker thread end once its call returns; the next
+        dispatch makes a new one."""
+        if self._watchdog is not None:
+            self._watchdog.shutdown(wait=False, cancel_futures=True)
+            self._watchdog = None
+
+    def _dispatch(self, site: str, fn):
+        """Fault boundary around one device dispatch: immediate bounded
+        retry on injected transients (raised before any device work, so a
+        retry is safe), and other executor failures wrapped into
+        :class:`StepFault` so ``run_forever`` can tell recoverable faults
+        from plain bugs.  A kernel or device fault (``KERNEL_ERRORS``)
+        raises as it is: no recovery may hide it."""
+        attempt = 0
+        while True:
+            try:
+                return self._with_watchdog(fn)
+            except (StepTimeout,) + KERNEL_ERRORS:
+                raise
+            except InjectedFault as e:
+                if attempt >= self.serve_cfg.max_step_retries:
+                    raise
+                attempt += 1
+                self._emit("retry", step=int(self.sched.n_decode_steps),
+                           site=str(getattr(e, "site", site)),
+                           attempt=int(attempt))
+            except Exception as e:
+                raise StepFault(site, e) from e
+
+    def _maybe_inject_nan(self, step: dict, slots: List[int]) -> None:
+        """Chaos only: poison the logits of injector-chosen slots with NaN
+        inside the step.  The mask key is added only when an injector is
+        live, so a fault-free run's step is unchanged."""
+        if not self.faults.enabled:
+            return
+        bad = self.faults.nan_slots(slots)
+        if not bad:
+            return
+        mask = np.zeros(self.n_slots, bool)
+        mask[list(bad)] = True
+        step["nan_mask"] = mask
+
     def _fail_slot(self, slot: int):
         """The fused finite-logits guard flagged this slot (-1 sentinel):
         fail just this request and release its slot."""
         req = self._evict(slot)
         req.finish(self.now, "failed")
+        self._emit("fault", step=int(self.sched.n_decode_steps),
+                   site="nan_guard", request_id=int(req.request_id),
+                   slot=int(slot))
 
     # -- admission / preemption ---------------------------------------------
 
@@ -601,11 +788,16 @@ class ServeLoop:
                                src_index=src_index,
                                tokens=req.prompt[:length])
                 return
-            except NoFreeBlocks:
+            except NoFreeBlocks as e:
                 # the inserting request holds no slot entry in `active`
                 # yet, so it can never preempt itself here
                 victim = self.pick_victim()
                 if victim is None:
+                    if isinstance(e, InjectedFault):
+                        # injected exhaustion with nobody to preempt is an
+                        # infrastructure fault: recoverable, not a sizing
+                        # bug
+                        raise
                     raise RuntimeError(
                         "paged pool cannot hold a single admitted "
                         "request; increase num_blocks")
@@ -635,12 +827,17 @@ class ServeLoop:
             toks[j, :eff[j]] = r.prompt[:eff[j]]
         probed = self.probe.enabled   # every admission prefill is sampled
         t0 = time.perf_counter()
-        with self.tel.span("prefill", group_size=len(group), pad_to=pad_to):
-            logits, cache, *stats = self.executor.prefill(
+
+        def dispatch():
+            out = self.executor.prefill(
                 {"tokens": toks}, self.cache_T,
                 prompt_lens=lens if self.ragged else None,
                 **({"probed": True} if probed else {}))
             _sync(self.executor.device)
+            return out
+
+        with self.tel.span("prefill", group_size=len(group), pad_to=pad_to):
+            logits, cache, *stats = self._dispatch("prefill", dispatch)
         wall = time.perf_counter()
         dispatch_s = wall - t0
         self.prefill_s += dispatch_s
@@ -703,8 +900,10 @@ class ServeLoop:
                           n_tokens=int(lens.sum()) + n_emitted)
 
     def _append_token(self, req: Request, tok: int, wall: float):
-        """Record one emitted token with its wall-clock stamp (replayed
-        tokens keep their original stamps)."""
+        """Record one emitted token with its wall-clock stamp.  Replayed
+        tokens keep their original stamps and are not streamed again: a
+        fresh emission also goes to the ``on_token`` hook, each position
+        once."""
         req.tokens.append(tok)
         if len(req.wall_token_times) < len(req.tokens):
             req.wall_token_times.append(wall)
@@ -716,6 +915,8 @@ class ServeLoop:
             else:
                 self.sched.observe_itl(req.slo_class,
                                        wall - req.wall_token_times[-2])
+            if self.on_token is not None:
+                self.on_token(req, tok, len(req.tokens) - 1)
 
     # -- stepping -----------------------------------------------------------
 
@@ -751,15 +952,21 @@ class ServeLoop:
                 "cache_len": self.cm.cache_len_vector()}
         if self.paged:
             step["block_tables"] = self.cm.block_tables_device()
+        self._maybe_inject_nan(step, slots)
         self.tel.count("h2d_bytes", int(self.slot_seeds.nbytes)
                        + int(counts.nbytes))
         probed = self.probe.should_sample(int(self.sched.n_decode_steps))
-        fn = self._decode_probe_fn if probed else self._decode_fn
         t0 = time.perf_counter()
-        with self.tel.span("decode", n_slots=len(slots)):
+
+        def dispatch():
+            fn = self._decode_probe_fn if probed else self._decode_fn
             toks, new_cache, *stats = fn(self.cm.cache, step,
                                          self.slot_seeds, counts)
-            toks_np = toks.cpu().numpy()     # waits for the device
+            # the first synchronizing read: waits for the device
+            return (toks.cpu().numpy(), new_cache, *stats)
+
+        with self.tel.span("decode", n_slots=len(slots)):
+            toks_np, new_cache, *stats = self._dispatch("decode", dispatch)
         wall = time.perf_counter()
         dispatch_s = wall - t0
         self.decode_s += dispatch_s
@@ -827,6 +1034,8 @@ class ServeLoop:
         K+1 for pure speculation and max(K+1, chunk) when chunk slots are
         aboard; causality makes the wider shape's extra columns inert."""
         t_start = time.perf_counter()
+        # the drafter may be disabled mid-step by the degradation ladder;
+        # the slot bookkeeping below keeps using the one that drafted
         drafter = self.drafter
         K = self.serve_cfg.num_draft_tokens if drafter is not None else 0
         chunk_now = dict(self.chunking)
@@ -840,8 +1049,21 @@ class ServeLoop:
         drafts = {}
         with self.tel.span("draft", n_slots=len(dec)):
             if drafter is not None and any(caps.values()):
-                drafts = drafter.propose_all(
-                    {s: self.active[s] for s in dec}, caps)
+                try:
+                    drafts = drafter.propose_all(
+                        {s: self.active[s] for s in dec}, caps)
+                    self._drafter_faults = 0
+                except DrafterFault:
+                    # a failed drafter costs speculation, never
+                    # correctness: the step runs draft-less (one committed
+                    # token per slot, exactly a classic decode)
+                    drafts = {}
+                    self._drafter_faults += 1
+                    if self._drafter_faults >= DRAFTER_FAULT_LIMIT:
+                        self.drafter = None
+                        self._emit("degrade",
+                                   step=int(self.sched.n_decode_steps),
+                                   action="disable_speculation")
         draft_s = time.perf_counter() - t_draft
         drafts = {s: np.asarray(drafts.get(s, ()), np.int32)[:caps[s]]
                   for s in dec}
@@ -872,12 +1094,18 @@ class ServeLoop:
         step = {"tokens": toks, "cache_len": self.cm.cache_len_vector()}
         if self.paged:
             step["block_tables"] = self.cm.block_tables_device()
+        self._maybe_inject_nan(step, slots)
         probed = self.probe.should_sample(int(self.sched.n_decode_steps))
-        fn = self._verify_probe_fn if probed else self._verify_fn
         t0 = time.perf_counter()
-        with self.tel.span("verify", n_slots=len(slots)):
+
+        def dispatch():
+            fn = self._verify_probe_fn if probed else self._verify_fn
             greedy, new_cache, *stats = fn(self.cm.cache, step)
-            greedy_np = greedy.cpu().numpy()     # waits for the device
+            # the first synchronizing read: waits for the device
+            return (greedy.cpu().numpy(), new_cache, *stats)
+
+        with self.tel.span("verify", n_slots=len(slots)):
+            greedy_np, new_cache, *stats = self._dispatch("verify", dispatch)
         wall = time.perf_counter()
         dispatch_s = wall - t0
         self.decode_s += dispatch_s
@@ -974,6 +1202,11 @@ class ServeLoop:
             if slot in finished:
                 req = self._evict(slot)
                 req.finish(self.now, finished[slot])
+                if finished[slot] == "failed":
+                    self._emit("fault", step=int(self.sched.n_decode_steps),
+                               site="nan_guard",
+                               request_id=int(req.request_id),
+                               slot=int(slot))
             elif drafter is not None and slot not in chunk_now:
                 # chunk slots have no drafter state to rewind: mid-chunk
                 # ones were never admitted into it, just-completed ones had
@@ -1055,12 +1288,16 @@ class ServeLoop:
                         if self.on_step_end is not None:
                             self.on_step_end(self)
                         continue
-                    self._step()
+                    try:
+                        self._step()
+                    except RECOVERABLE_ERRORS as e:
+                        self.recover(e)
                     if self.on_step_end is not None:
                         self.on_step_end(self)
             self._emit_request_records()
             return self.report()
         finally:
+            self._stop_watchdog()
             self.tel.stop_profile()
             self.tel.flush()
 
@@ -1084,10 +1321,16 @@ class ServeLoop:
 
     def _step(self):
         """One loop iteration: admissions, then one batched decode (or one
-        verify step, while a drafter or a chunked prefill needs it)."""
+        verify step, while a drafter or a chunked prefill needs it).
+        Raising out of here with a recoverable error leaves no partial
+        state: failed admissions are rolled back to the queue head."""
         groups = self.sched.plan_admissions()
-        for gi, group in enumerate(groups):
-            self.admit(group, new_sync=(gi == 0))
+        try:
+            for gi, group in enumerate(groups):
+                self.admit(group, new_sync=(gi == 0))
+        except RECOVERABLE_ERRORS:
+            self._rollback_admissions(groups)
+            raise
         if not self.active:
             if not len(self.rq) and self.arrivals:
                 # idle: jump the virtual clock to the next arrival
@@ -1100,9 +1343,85 @@ class ServeLoop:
             t_prep = time.perf_counter()
             slots = self.writable_slots()
             prepare_s = time.perf_counter() - t_prep
-            if slots:
-                self.decode_once(slots, prepare_s=prepare_s)
+            if not slots:
+                return
+            self.decode_once(slots, prepare_s=prepare_s)
         self.submit_arrivals()
+
+    def _rollback_admissions(self, groups: List[List[Request]]):
+        """A recoverable fault escaped mid-admission: return every
+        not-yet-installed request to the queue head (tokens it already
+        emitted ride the replay list), in the original admission order."""
+        queued = set(map(id, self.rq.peek()))
+        for group in reversed(groups):
+            for req in reversed(group):
+                if req.state is RequestState.PREFILL:
+                    req.preempt()          # -> WAITING, tokens -> replay
+                    self.rq.push_front(req)
+                elif (req.state is RequestState.WAITING
+                      and id(req) not in queued):
+                    # WAITING and already queued happens when the faulting
+                    # insert preempted a groupmate: preempt() requeued it,
+                    # a second push would admit it twice
+                    self.rq.push_front(req)
+                # DECODE (already installed) and terminal states stay put
+
+    # -- recovery -----------------------------------------------------------
+
+    def recover(self, error: BaseException):
+        """Rebuild-and-replay after a recoverable step failure: preempt
+        every active request (token-exact replay), build a FRESH store and
+        let the loop re-admit.  The old store is dropped unread, so a step
+        the watchdog abandoned may still write into it.  Past
+        ``max_recoveries`` the loop fails every in-flight request so the
+        serve always returns.  After ``kernel_fault_limit`` recoveries from
+        injected faults the rest of this serve runs the kernels' plain
+        versions (the ``plain_fallback`` degrade record; the reference's
+        ``xla_fallback``): the loop and its drafter take executors on the
+        plain backend, and the engine's stay as they are."""
+        step = int(self.sched.n_decode_steps)
+        site = str(getattr(error, "site", "executor"))
+        if not isinstance(error, InjectedFault):
+            # injected faults were recorded when they fired; real failures
+            # (StepFault, StepTimeout) get their record here
+            self._emit("fault", step=step, site=site,
+                       error=f"{type(error).__name__}: {error}")
+        self.n_recoveries += 1
+        self._injected_recoveries += isinstance(error, InjectedFault)
+        if self.n_recoveries > self.serve_cfg.max_recoveries:
+            self._fail_inflight(error)
+            return
+        with self.tel.span("recover", site=site):
+            n_requeued = 0
+            while self.active:
+                self.preempt(self.pick_victim())
+                n_requeued += 1
+            lim = self.serve_cfg.kernel_fault_limit
+            if (lim and self._injected_recoveries >= lim
+                    and self.executor.resolved_matmul_backend != "plain"):
+                self.executor = self.executor.with_matmul_backend("plain")
+                if self.drafter is not None:
+                    self.drafter.use_matmul_backend("plain")
+                self._emit("degrade", step=step, action="plain_fallback")
+            self.cm = self._build_cm()
+            self.sched.cache_mgr = self.cm
+            self._bind_step_fns()
+        self._emit("recover", step=step, n_requeued=int(n_requeued))
+
+    def _fail_inflight(self, error: BaseException):
+        """Terminal degradation: the recovery budget is spent.  Fail every
+        in-flight request (releasing all slots and blocks) so the loop
+        drains and the serve returns a report instead of raising."""
+        self._emit("degrade", step=int(self.sched.n_decode_steps),
+                   action="abort",
+                   error=f"{type(error).__name__}: {error}")
+        for slot in list(self.active):
+            req = self._evict(slot)
+            req.finish(self.now, "failed")
+        for req in self.rq.pop(len(self.rq)):
+            req.finish(self.now, "failed")
+        while self.arrivals:
+            self.arrivals.popleft().finish(self.now, "failed")
 
     def report(self) -> ServeReport:
         """The report as a pure reduction over the step-record stream, plus

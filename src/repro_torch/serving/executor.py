@@ -19,6 +19,16 @@ The matmul backend is the config's ``matmul_backend`` (``auto``: the CUDA
 kernel on the GPU, the plain version on the CPU).  The mesh executor is not
 ported yet.
 
+Fault injection: a serve loop attaches its ``FaultInjector``
+(:meth:`set_faults`); the prefill checks the ``prefill`` site, the decode
+and verify functions the ``step`` site and then ``slow`` (a latency
+spike), and the cache surgery ops the ``oom`` site, each before any device
+work, at the reference's points.  The decode and verify steps take an
+optional ``nan_mask`` (n_slots,) bool in ``step`` that poisons the flagged
+slots' logits before the finite-logits guard.  The kernel rung of the
+degradation ladder takes a copy on the plain backend
+(:meth:`with_matmul_backend`) for the rest of its serve.
+
 ``probed=True`` selects the sparsity probe's variants of the prefill,
 decode-sample and verify-sample functions (``api.*_probed``): the same
 forward with a stats collector passed down the layer loop, returning the
@@ -28,6 +38,8 @@ unprobed functions are the ones the serve ran before the probe existed.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -35,6 +47,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.serving.faults import NULL_INJECTOR
 from repro_torch.serving.telemetry import NULL_TELEMETRY
 
 _SEED_MIX = 1_000_003
@@ -76,6 +89,7 @@ class SingleDeviceExecutor:
         self.device = resolve_device(device)
         self.matmul_backend = cfg.matmul_backend
         self.telemetry = NULL_TELEMETRY
+        self.faults = NULL_INJECTOR
         self._params = params
 
     @property
@@ -84,6 +98,30 @@ class SingleDeviceExecutor:
 
     def set_telemetry(self, telemetry) -> None:
         self.telemetry = telemetry if telemetry is not None else NULL_TELEMETRY
+
+    def set_faults(self, injector) -> None:
+        """Attach a fault injector (None reverts to the no-op handle)."""
+        self.faults = injector if injector is not None else NULL_INJECTOR
+
+    def with_matmul_backend(self, backend: str) -> "SingleDeviceExecutor":
+        """A copy of this executor whose kernels take ``backend`` (the
+        degradation ladder's kernel rung, the reference's
+        ``set_matmul_backend``).  The model reads the backend from the
+        config, so the copy gets a rebuilt config; this executor, and the
+        engine that owns it, keep theirs."""
+        ex = copy.copy(self)
+        ex.cfg = dataclasses.replace(self.cfg, matmul_backend=backend)
+        ex.matmul_backend = backend
+        return ex
+
+    @property
+    def resolved_matmul_backend(self) -> str:
+        """The route the kernels' wrappers take for this device's tensors:
+        ``auto`` is the kernel on the GPU and the plain version on the
+        CPU."""
+        if self.matmul_backend == "auto":
+            return "kernel" if self.device.type == "cuda" else "plain"
+        return self.matmul_backend
 
     def _require_params(self):
         if self._params is None:
@@ -107,6 +145,16 @@ class SingleDeviceExecutor:
             b["block_tables"] = step["block_tables"]
         return b
 
+    def _poison(self, logits: torch.Tensor, step) -> torch.Tensor:
+        """NaN the logit rows of the slots ``step["nan_mask"]`` flags (fault
+        injection only; a step without the key is returned untouched)."""
+        mask = step.get("nan_mask")
+        if mask is None:
+            return logits
+        m = torch.as_tensor(np.asarray(mask, bool), device=logits.device)
+        m = m.reshape(m.shape + (1,) * (logits.ndim - 1))
+        return torch.where(m, torch.full_like(logits, float("nan")), logits)
+
     # -- model entry points -------------------------------------------------
 
     @torch.no_grad()
@@ -116,6 +164,7 @@ class SingleDeviceExecutor:
         ``prompt_lens`` selects the ragged right-padded variant.
         ``probed=True`` also returns the activation stats."""
         self._require_params()
+        self.faults.check("prefill")
         b = {"tokens": self.put(batch["tokens"], torch.long)}
         lens = None if prompt_lens is None else self.put(prompt_lens,
                                                          torch.long)
@@ -141,8 +190,11 @@ class SingleDeviceExecutor:
 
         @torch.no_grad()
         def fn(cache, step, seeds, counts):
+            self.faults.check("step")
+            self.faults.delay()
             b = self._step_batch(cache, step, paged)
             logits, cache, *stats = decode(self._params, self.cfg, b)
+            logits = self._poison(logits, step)
             draw = (None if temperature <= 0 else
                     [sample_seed(s, c) for s, c in zip(seeds, counts)])
             return (sample_tokens(logits, temperature, draw), cache, *stats)
@@ -167,8 +219,11 @@ class SingleDeviceExecutor:
 
         @torch.no_grad()
         def fn(cache, step):
+            self.faults.check("step")
+            self.faults.delay()
             b = self._step_batch(cache, step, paged)
             logits, cache, *stats = verify(self._params, self.cfg, b)
+            logits = self._poison(logits, step)
             B, S, V = logits.shape
             tok = sample_tokens(logits.reshape(B * S, V), 0.0)
             return (tok.reshape(B, S), cache, *stats)
@@ -214,6 +269,7 @@ class SingleDeviceExecutor:
     def slot_insert(self, pool, src, slot: int, src_index: int = 0):
         """Install request ``src_index`` of a prefill cache into ``slot`` of
         the pooled cache, in place; returns the pool."""
+        self.faults.check("oom")
         return api.slot_insert(self.cfg, pool, src, slot, src_index)
 
     def zeros_paged_cache(self, num_blocks: int, block_size: int):
@@ -226,6 +282,7 @@ class SingleDeviceExecutor:
         """Scatter request ``src_index`` of a prefill cache into physical
         pages through ``block_ids`` (trash-redirected entries skip shared
         blocks), in place; returns the pages."""
+        self.faults.check("oom")
         ids = torch.as_tensor(np.asarray(block_ids), dtype=torch.long,
                               device=self.device)
         return api.paged_insert(self.cfg, pages, src, ids, src_index)
@@ -234,6 +291,7 @@ class SingleDeviceExecutor:
     def copy_block(self, pages, dst: int, src: int):
         """Copy physical page ``src`` -> ``dst`` in every leaf
         (copy-on-write), in place; returns the pages."""
+        self.faults.check("oom")
         for p in pages.values():
             p[:, dst].copy_(p[:, src])
         return pages

@@ -20,9 +20,6 @@ non-speculative engine would emit, so speculation changes step counts,
 never outputs; drafting is greedy-only.  Rollback lives in the cache
 managers: the slab store advances ``cache_len`` by the committed count, the
 paged store also releases whole tail blocks past it (``release_tail``).
-
-The reference's drafter fault hook (``faults.check("drafter")``) is not
-ported: fault injection waits with the rest of the faults.
 """
 
 from __future__ import annotations
@@ -32,6 +29,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from repro_torch.serving.cache_manager import CacheManager
+from repro_torch.serving.faults import NULL_INJECTOR
 from repro_torch.serving.scheduler import prefill_bucket_len
 from repro_torch.serving.telemetry import NULL_TELEMETRY
 
@@ -44,6 +42,12 @@ class Drafter:
     the slots it drafts for; the weight-free drafter ignores them.
     ``propose_all`` is called once per verify step with every decode slot
     that rides it and returns at most ``caps[slot]`` tokens per slot."""
+
+    # fault-injection handle (threaded by the serve loop like telemetry);
+    # ``propose_all`` implementations check the "drafter" site on entry:
+    # the loop catches the raised ``DrafterFault`` and runs the step
+    # draft-less (degrading to no speculation after repeats)
+    faults = NULL_INJECTOR
 
     name = "none"
 
@@ -61,6 +65,10 @@ class Drafter:
         """The verify step committed tokens: the slot's valid context
         length (prompt + generated - 1 unfed token) is now
         ``committed_len``.  Stateful drafters rewind here."""
+
+    def use_matmul_backend(self, backend: str) -> None:  # noqa: B027
+        """The kernel rung moved this serve's kernels to ``backend``; a
+        drafter that runs a model follows it."""
 
 
 def _context(req) -> np.ndarray:
@@ -99,6 +107,7 @@ class PromptLookupDrafter(Drafter):
         return np.zeros(0, np.int32)
 
     def propose_all(self, requests, caps):
+        self.faults.check("drafter")
         return {slot: self._lookup(_context(req),
                                    min(self.k, caps.get(slot, self.k)))
                 for slot, req in requests.items()}
@@ -167,9 +176,15 @@ class ModelDrafter(Drafter):
     def observe_commit(self, slot: int, committed_len: int):
         self.cm.lengths[slot] = committed_len
 
+    def use_matmul_backend(self, backend: str):
+        self.executor = self.executor.with_matmul_backend(backend)
+        self.cm.executor = self.executor
+        self._decode = self.executor.decode_sample_fn(0.0)
+
     # -- drafting -----------------------------------------------------------
 
     def propose_all(self, requests, caps):
+        self.faults.check("drafter")
         slots = list(requests.keys())
         if not slots:
             return {}

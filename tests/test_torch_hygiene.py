@@ -6,10 +6,11 @@ refuses what it does not implement yet.
     ``chip_smoke.py``) names either in an import statement;
   * the entry points default to ``device="cuda"`` and raise where CUDA is
     absent, instead of running on the CPU unasked;
-  * every ``ServeConfig`` feature that is not ported (fault injection, mesh
-    serving) raises ``NotImplementedError`` when the engine is built, and
-    what is ported (the paged store, speculative decoding, chunked prefill,
-    the sparsity probe, the telemetry sinks) builds and serves on the CPU;
+  * every ``ServeConfig`` feature that is not ported (mesh serving) raises
+    ``NotImplementedError`` when the engine is built, and what is ported
+    (the paged store, speculative decoding, chunked prefill, the sparsity
+    probe, the telemetry sinks, fault injection) builds and serves on the
+    CPU;
   * the kernel wrappers refuse what their kernels do not take instead of
     falling back;
   * ``chip_smoke.py`` exits nonzero and prints no result without a GPU or
@@ -80,7 +81,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.core.cost_model", "repro_torch.core.array_sim",
                  "repro_torch.core.dataflow", "repro_torch.core.probe",
                  "repro_torch.serving.probe",
-                 "repro_torch.serving.telemetry"):
+                 "repro_torch.serving.telemetry",
+                 "repro_torch.serving.faults",
+                 "repro_torch.serving.frontdoor",
+                 "repro_torch.serving.frontdoor.replica",
+                 "repro_torch.serving.frontdoor.router",
+                 "repro_torch.serving.frontdoor.server",
+                 "repro_torch.serving.frontdoor.client"):
         assert name in walked, name
 
 
@@ -129,7 +136,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     ("prefill_chunk", 16, "serves"),
     ("mesh_shape", (1, 2), "not ported"),
     ("probe", serving.SparsityProbe(probe_every=1, n_mc=2000), "serves"),
-    ("faults", object(), "not ported"),
+    ("faults", serving.FaultInjector(schedule=[("step", 0)]), "serves"),
 ])
 def test_serve_features_build_or_raise(field, value, outcome):
     cfg = _small_cfg(matmul_mode="bp_exact", kv_cache_int8=True)
@@ -155,6 +162,8 @@ def test_serve_features_build_or_raise(field, value, outcome):
     # a probed serve samples its prefill and each of its 2 decode steps
     assert (rep.hw_measured is not None and rep.hw_measured["n_samples"]
             == 3) == (field == "probe")
+    # the injector's one scheduled step fault is retried once
+    assert rep.n_retries == rep.n_injected_faults == (field == "faults")
 
 
 @pytest.mark.parametrize("int8kv", [False, True], ids=["bf16kv", "int8kv"])
