@@ -22,6 +22,9 @@ are missing.  Phases, one JSON line each:
                models' projections (M 9 to 2048, the verify steps' 20 and
                256 among them), the reference's ragged
                shapes and ragged prefill ones (K % 16 != 0, N 17 and 260),
+               every projection of moonshot-v1-16b-a3b, granite-moe-1b-a400m,
+               qwen2-7b, phi3-medium-14b and granite-34b (their routers and
+               untied lm heads included) at M 1, 4, 8 and 256,
                an A one byte off alignment (the byte loads), inputs with
                -128, and plans that split K (the GEMV's workspace must be
                zero again after them); paged attention within 1e-5 in float32 on the
@@ -29,8 +32,9 @@ are missing.  Phases, one JSON line each:
                last place at qwen2-1.5b's decode shape, at 1, 8 and 12
                query rows per kv head (float32 and bf16), at 32 sequences
                of 8192 positions, at lengths either side of a ring stage and
-               a split, on pages shared across sequences, plus a length-0
-               all-trash case;
+               a split, on pages shared across sequences, at the further
+               configs' decode shapes (G 1 at D 128, G 2 at D 64, G 7, G 4
+               and G 48 on one kv head), plus a length-0 all-trash case;
                the chunked WKV6 recurrence (its two kernels, state chain
                and chunk outputs) on the reference's kernel-test shapes
                (float32 within 2e-4, bf16 r/k/v within 3e-2), at rwkv6-7b's
@@ -165,7 +169,34 @@ are missing.  Phases, one JSON line each:
                within twice that gap of the plain version's.  Where no
                layer can amplify the kernel's rounding yet, the check is
                strict: layer 0's WKV state after every kernel-route
-               prefill of the serve within 3e-2 of the plain serve's.
+               prefill of the serve within 3e-2 of the plain serve's;
+  serve_moe    the fourth main path, the MoE family, after the rwkv
+               weights are freed, one JSON line per model: full-width,
+               full-depth moonshot-v1-16b-a3b (48 layers, 64 experts of
+               d_ff 1408, top 6; random weights from a seed, the expert
+               stacks drawn a layer at a time into bf16, ~53 GB) on
+               ``serve_paged``'s workload, block size and 36-block pool,
+               then four requests of full-width granite-moe-1b-a400m (K2 at
+               head dim 64, a 32-block pool), both in bp_exact with a bf16
+               KV cache.  K1 must launch 5 times per layer per forward (q,
+               k, v, o, the router) plus once for the lm head, per route,
+               and K2 once per layer per decode step; the pool must
+               preempt.  Tokens are held against the same engine on the
+               plain versions: streams may part only at a near-tie, of the
+               final logits (within 4 bf16 units at the step where they
+               part) or of a router top-k (shown by re-running each decode
+               step from the same state with the plain K2: a layer's picks
+               change); a part that is neither fails.  A slab serve with an
+               int8 KV cache bypasses K2, so its tokens must equal its
+               plain version's exactly.  ``generate()`` (first 8 tokens)
+               groups other tokens than the serve, so capacity drops
+               differ: its parts are counted, not held.  Reports the
+               weight bytes by kind, peak memory, decode tokens/s, step
+               p50/p90 and TTFT beside
+               ``serve_paged``'s, and a profiled two-request serve's device
+               time per decode step (its steps annotated) against the
+               expert stacks' byte bound (every expert is read every step:
+               the capacity buffer spans all of them).
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits 1.
@@ -212,6 +243,14 @@ PREFILL_TIME = tuple((m, QWEN_KN) for m in (64, 256, 512, 2048)) + tuple(
 QWEN_LAYER_KN = ((1536, 1536), (1536, 256), (1536, 256), (1536, 1536),
                  (1536, 8960), (1536, 8960), (8960, 1536))
 RWKV_LAYER_KN = ((4096, 4096),) * 5 + ((4096, 14336), (14336, 4096))
+# the further configs whose projections and decode attention the kernels
+# phase checks (``projection_kn``, ``attention_dims``): the MoE family
+# (``serve_moe`` serves both) and the dense configs not served here
+FURTHER_CONFIGS = ("moonshot-v1-16b-a3b", "granite-moe-1b-a400m", "qwen2-7b",
+                   "phi3-medium-14b", "granite-34b")
+# rows those projections are checked at: the decode GEMV's 1, 4 and 8, and
+# one prefill's 256 (the tiles)
+FURTHER_CHECK_M = (1, 4, 8, 256)
 # ragged shapes of the reference's kernel tests, and ragged prefill shapes:
 # K not a multiple of 16 (byte loads), N 17 and 260
 RAGGED_MKN = ((8, 128, 128), (16, 256, 384), (256, 256, 256), (5, 33, 17),
@@ -240,6 +279,15 @@ PA_RAGGED = ((1, 2, 1, 8, 6, 4, 4, 16), (3, 4, 2, 16, 12, 4, 5, 20),
 # qwen2-1.5b's decode attention: 12 query heads on 2 kv heads, head dim 128,
 # with the serve's block size
 QWEN_ATTN = {"H": 12, "KH": 2, "D": 128, "bs": 16}
+#: serve_moe: each model's requests and pool (the trash page included).
+#: moonshot-v1-16b-a3b takes ``serve_paged``'s workload, whose lengths its
+#: request generator draws alike, so its 36 blocks preempt as qwen2's do
+#: (4 times in a CPU rehearsal); granite-moe-1b-a400m's 4 requests hold up
+#: to 39 blocks unbounded, and 32 preempt once in the rehearsal
+MOE_SERVES = {"moonshot-v1-16b-a3b": {"n_requests": 8, "num_blocks": 36,
+                                      "seed": 1},
+              "granite-moe-1b-a400m": {"n_requests": 4, "num_blocks": 32,
+                                       "seed": 5}}
 #: paged serve: pages in the pool, the trash page included.  Its requests
 #: hold up to 37 blocks at once with an unbounded pool (16 shared + up to 6
 #: private blocks per slot), so 35 allocatable blocks run dry and preempt
@@ -439,6 +487,27 @@ def paged_case(torch, gen, B, H, KH, D, n_blocks, bs, pps, lengths, dtype):
     return q, kp, vp, tables, lens
 
 
+def projection_kn(cfg):
+    """(K, N) of each distinct BitParticle matmul of a config's forward:
+    q, k / v, o, the dense FFN's in and out or the MoE router, and the
+    untied lm head (on the padded vocabulary)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    kn = [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd),
+          (cfg.num_heads * hd, d)]
+    if cfg.num_experts:
+        kn.append((d, cfg.num_experts))
+    else:
+        kn += [(d, cfg.d_ff), (cfg.d_ff, d)]
+    if not cfg.tie_embeddings:
+        kn.append((d, cfg.vocab_padded))
+    return list(dict.fromkeys(kn))
+
+
+def attention_dims(cfg):
+    """(query heads, kv heads, head dim) of a config's decode attention."""
+    return cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -511,15 +580,23 @@ def check_bp_matmul(torch):
     """The BitParticle matmul bit-exact against its plain version (raw
     int32 and fused float32, both modes), on each route: the decode GEMV
     (M <= 8) and the prefill tile kernels (M > 8: ``mma.sync``, and
-    ``wgmma`` for exact mode's larger tiles), each route's cases and error
+    ``wgmma`` for exact mode's larger tiles), at the served models' shapes
+    and every further config's projections (``FURTHER_CONFIGS``: the MoE
+    routers at N 64 and 32, the untied lm heads up to N 163,840) at M 1, 4,
+    8 and 256, each route's cases and error
     kept apart; plans that split K are counted (the tiles' slices sum in a
     cluster's shared memory, the GEMV's in a workspace, which must be zero
     again after them)."""
+    from repro_torch.configs.base import get_arch
     from repro_torch.kernels.bitparticle_matmul import ops
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = [(m, k, n) for m in (1, 4, 8) for k, n in QWEN_KN + RWKV_KN]
     shapes += [(m, k, n) for m in PREFILL_CHECK_M
                for k, n in QWEN_KN + RWKV_KN[:3]]
+    further = [(m, k, n) for name in FURTHER_CONFIGS
+               for k, n in projection_kn(get_arch(name))
+               for m in FURTHER_CHECK_M]
+    shapes += further
     shapes += list(RAGGED_MKN)
     # A one byte off 16-byte alignment (K a multiple of 16): the kernels'
     # byte loads
@@ -577,6 +654,9 @@ def check_bp_matmul(torch):
             "max_abs_err": max(max_err.values()),
             "max_abs_err_by_route": max_err,
             "split_plans": split_plans, "workspace_left_nonzero": ws_left,
+            "further_configs": {name: projection_kn(get_arch(name))
+                                for name in FURTHER_CONFIGS},
+            "further_cases": 4 * len(further),
             "parity": "ok" if not failures else "FAILED",
             "failures": failures[:10]}
 
@@ -584,8 +664,9 @@ def check_bp_matmul(torch):
 def check_paged_attention(torch):
     """The paged-attention kernel against its plain version: float32 on the
     reference's ragged shapes (atol = rtol = 1e-5, that test's own), bf16 at
-    qwen2-1.5b's decode shape (one bf16 unit in the last place, see
-    ``bf16_ulp``), and length-0 slots whose tables are all trash."""
+    qwen2-1.5b's decode shape and at the further configs' (one bf16 unit in
+    the last place, see ``bf16_ulp``), and length-0 slots whose tables are
+    all trash."""
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.paged_attention.ops import paged_attention
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -613,6 +694,17 @@ def check_paged_attention(torch):
             cases.append((f"G{G} B4 {name}", name,
                           paged_case(torch, gen, 4, 2 * G, 2, D,
                                      4 * pps + 1, bs, pps, lengths, dtype)))
+    # the further configs' decode attention: G 1 (moonshot), G 2 at head
+    # dim 64 (granite-moe), G 7 (qwen2-7b), G 4 (phi3), G 48 on one kv head
+    # (granite-34b: six groups of 8)
+    from repro_torch.configs.base import get_arch
+    for name in FURTHER_CONFIGS:
+        h, kh, d = attention_dims(get_arch(name))
+        lengths = torch.randint(0, bs * pps, (4,), generator=gen,
+                                device="cuda").tolist()
+        cases.append((f"{name} H{h} KH{kh} D{d} B4", "bfloat16",
+                      paged_case(torch, gen, 4, h, kh, d, 4 * pps + 1, bs,
+                                 pps, lengths, torch.bfloat16)))
     # 32 sequences of 8192 positions (lengths 8191), and lengths either
     # side of a ring stage and of a split of a 512-page table
     long_pps = 512
@@ -947,20 +1039,23 @@ def _sdpa_on_gathered(torch, q, kp, vp, tables, lens):
                                                   enable_gqa=True)
 
 
-def time_paged_case(torch, flush, gen, B, lengths, pps=None):
-    """Median times of paged attention at qwen2-1.5b's decode shape with
-    the given lengths (inclusive last positions): the kernel, its plain
-    version and the library yardstick, beside the bound."""
+def time_paged_case(torch, flush, gen, B, lengths, pps=None, dims=None):
+    """Median times of paged attention at qwen2-1.5b's decode shape (or at
+    ``dims`` = (H, KH, D)) with the given lengths (inclusive last
+    positions): the kernel, its plain version and the library yardstick,
+    beside the bound."""
     from repro_torch.kernels.paged_attention.ops import paged_attention
     H, KH, D, bs = (QWEN_ATTN[k] for k in ("H", "KH", "D", "bs"))
+    if dims is not None:
+        H, KH, D = dims
     if pps is None:
         pps = max(int(n) for n in lengths) // bs + 1
     args = paged_case(torch, gen, B, H, KH, D, B * pps + 1, bs, pps, lengths,
                       torch.bfloat16)
     got = paged_attention(*args, backend="kernel")
     want = paged_attention(*args, backend="plain")
-    row = {"B": B, "lengths": [int(n) for n in lengths][:8],
-           "pages_per_seq": pps,
+    row = {"B": B, "H": H, "KH": KH, "D": D,
+           "lengths": [int(n) for n in lengths][:8], "pages_per_seq": pps,
            "max_abs_err": (got.float() - want.float()).abs().max().item()}
     row["ms"] = time_ms(torch, lambda: paged_attention(
         *args, backend="kernel"), flush)
@@ -2884,6 +2979,428 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
         "chunk": chunk}
 
 
+def build_moe(torch, name):
+    """Full-width, full-depth MoE model in bp_exact: random weights from
+    seed 0, the expert stacks drawn a layer at a time straight into bf16,
+    every dense weight (attention, router, lm head) quantized to int8
+    once.  Peak device memory of the initialisation and quantization is
+    measured on its own."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import api
+    from repro_torch.models.layers import quantize_dense_params
+
+    cfg = get_arch(name).replace(matmul_mode="bp_exact")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = quantize_dense_params(api.init(cfg, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    return {"cfg": cfg, "params": params,
+            "init_and_quantize_s": time.perf_counter() - t0,
+            "init_and_quantize_peak_mem_gb": init_peak,
+            "weight_bytes": weight_bytes_by_kind(torch, params)}
+
+
+def weight_bytes_by_kind(torch, params):
+    """Device bytes of the weights by kind: the bf16 expert stacks, the
+    int8 dense weights (attention, router, lm head), the embedding table,
+    and the rest (their float32 scales, norms)."""
+    out = {"experts_bf16": 0, "int8_dense": 0, "embedding": 0, "other": 0}
+
+    def rec(node, top):
+        for key, v in node.items():
+            if isinstance(v, dict):
+                rec(v, top or key)
+                continue
+            nbytes = v.numel() * v.element_size()
+            kind = ("experts_bf16" if key.startswith("experts_") else
+                    "int8_dense" if v.dtype == torch.int8 else
+                    "embedding" if (top or key) == "embed" else "other")
+            out[kind] += nbytes
+    rec(params, None)
+    out["total"] = sum(out.values())
+    return out
+
+
+class RouterTap:
+    """While installed, records every MoE layer's routing, in call order
+    (one entry per layer of each forward): its top-k expert ids (G, Tg, K)
+    and the gap between the k-th and (k+1)-th router logit (the gap of
+    their log-probabilities), the margin by which a pick won."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._route = moe, moe.route
+        torch = self.torch
+
+        def route(params, xg, cfg, probe=None):
+            probs, top_p, top_e = self._route(params, xg, cfg, probe)
+            v = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            self.calls.append((top_e, v[..., -2].log() - v[..., -1].log()))
+            return probs, top_p, top_e
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.route = self._route
+
+
+def router_tie_rerun(torch, np, engine, plain_cfg, requests, plain_toks,
+                     **serve_kw):
+    """The kernel serve again, each paged decode step run twice from the
+    same state: as the serve runs it, then on a copy of the cache with the
+    plain versions (of which only K2's result differs: K1 equals its plain
+    version bit for bit).  Per active slot and step it records the request,
+    the position the step writes, the layers whose expert picks differ
+    between the two runs (with both top-k margins there), and, where the
+    plain serve's stream (``plain_toks``) has another token at that
+    position, the step's logits of both tokens against the bf16 unit at
+    the top logit.  Returns (tokens of this serve, records)."""
+    from repro_torch.models import causal_lm
+    orig = causal_lm.decode_step_paged
+    rows, state = [], {}
+
+    def step(params, cfg, batch, probe=None):
+        copy = {k: v.clone() for k, v in batch["cache"].items()}
+        with RouterTap(torch) as kern:
+            logits, cache = orig(params, cfg, batch, probe=probe)
+        with RouterTap(torch) as plain:
+            plain_logits, _ = orig(params, plain_cfg, dict(batch, cache=copy))
+        del copy
+        B = logits.shape[0]
+        picks = [(torch.sort(ek.reshape(B, -1), -1).values,
+                  torch.sort(ep.reshape(B, -1), -1).values,
+                  gk.reshape(B), gp.reshape(B))
+                 for (ek, gk), (ep, gp) in zip(kern.calls, plain.calls)]
+        for slot, req in state["loop"].active.items():
+            pos = len(req.tokens)
+            flips = [{"layer": l, "kernel_margin": float(gk[slot]),
+                      "plain_margin": float(gp[slot]),
+                      "kernel_picks": ek[slot].tolist(),
+                      "plain_picks": ep[slot].tolist()}
+                     for l, (ek, ep, gk, gp) in enumerate(picks)
+                     if not torch.equal(ek[slot], ep[slot])]
+            want = plain_toks.get(req.request_id, [])
+            lg = logits[slot].float()
+            tok = int(torch.argmax(lg))
+            other = want[pos] if pos < len(want) else tok
+            if not flips and other == tok:
+                continue
+            top = lg[tok].item()
+            ulp = 2.0 ** (int(np.floor(np.log2(abs(top) + 1e-30))) - 7)
+            rows.append({"request": req.request_id, "position": pos,
+                         "router_flips": flips, "kernel_token": tok,
+                         "plain_serve_token": other,
+                         "plain_step_token": int(torch.argmax(
+                             plain_logits[slot].float())),
+                         "logit_gap": top - lg[other].item(),
+                         "bf16_ulp": ulp})
+        return logits, cache
+
+    causal_lm.decode_step_paged = step
+    try:
+        loop = engine.make_loop(requests, **serve_kw)
+        state["loop"] = loop
+        report = loop.run()
+    finally:
+        causal_lm.decode_step_paged = orig
+    return {r.request_id: r.tokens.tolist() for r in report.results}, rows
+
+
+def explain_parts(got, want, rows, names=("kernel", "plain")):
+    """Every request whose two streams part, with why: a near-tie of the
+    final logits (the two tokens within 4 bf16 units at the step where they
+    part) or of a router top-k (a layer's picks changed when the step was
+    re-run from the same state with the plain K2, at or before the part).
+    A part that is neither is not a near-tie."""
+    parts = []
+    for rid in sorted(got):
+        g, w = got[rid], want[rid]
+        if g == w:
+            continue
+        j = next((k for k in range(min(len(g), len(w))) if g[k] != w[k]),
+                 None)
+        a, b = names
+        part = {"request": rid, "position": j}
+        if j is not None:
+            part.update({f"{a}_token": g[j], f"{b}_token": w[j]})
+        mine = [r for r in rows if r["request"] == rid
+                and j is not None and r["position"] <= j]
+        router = [dict(r["router_flips"][0], position=r["position"],
+                       n_layers=len(r["router_flips"]))
+                  for r in mine if r["router_flips"]]
+        at = [r for r in mine if r["position"] == j
+              and r["plain_serve_token"] != r["kernel_token"]]
+        part["router_near_tie"] = router[0] if router else None
+        if at:
+            part["logit_gap"] = at[0]["logit_gap"]
+            part["bf16_ulp"] = at[0]["bf16_ulp"]
+        part["logit_near_tie"] = bool(
+            at and at[0]["logit_gap"] <= 4 * at[0]["bf16_ulp"])
+        part["near_tie"] = bool(router) or part["logit_near_tie"]
+        parts.append(part)
+    return parts
+
+
+def phase_serve_moe_model(torch, gpu, model, paged, n_requests, num_blocks,
+                          seed, n_slots=4, lead_window=4, block_size=16):
+    """One MoE model on the paged main path (bp_exact, bf16 KV): K1 on
+    every attention projection, router and lm head, K2 on every decode
+    step, the bf16 experts a batched product per weight.  Beside it the
+    same engine on the plain versions, the slab store with an int8 KV
+    cache (which bypasses K2) against its plain version, ``generate()``,
+    and a profiled two-request serve."""
+    import numpy as np
+
+    from repro_torch import serving
+    from repro_torch.models import causal_lm
+
+    cfg = model["cfg"]
+    params = model["params"]
+    L = cfg.num_layers
+    plain_cfg = cfg.replace(matmul_backend="plain")
+
+    def engine_for(c, backend="paged"):
+        return serving.ServingEngine(
+            c, params, serving.ServeConfig(max_new_tokens=32,
+                                           temperature=0.0,
+                                           cache_backend=backend,
+                                           block_size=block_size),
+            device="cuda")
+
+    engine = engine_for(cfg)
+    sched = serving.SchedulerConfig(lead_window=lead_window)
+    prompts = _paged_requests(serving, np.random.default_rng(seed),
+                              cfg.vocab_size, n_requests)
+    cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
+    kw = dict(n_slots=n_slots, cache_T=cache_T, sched_cfg=sched)
+    pkw = dict(kw, num_blocks=num_blocks)
+    t0 = time.perf_counter()
+    # warm-up serve (allocator): not measured
+    guarded_serve(engine, _copies(serving, prompts[:2]), **pkw)
+    torch.cuda.synchronize()
+
+    # -- the measured main-path run: counts zeroed just before, read after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loop = engine.make_loop(_copies(serving, prompts), **pkw)
+    step_lengths = []
+    loop.on_step_end = lambda lp: step_lengths.append(
+        lp.cm.cache_len_vector().tolist())
+    report = loop.run()
+    no_fault_guard(report, loop.stream, f"serve_moe {cfg.name}")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_prefill = sum(1 for r in loop.stream if r["kind"] == "prefill")
+    step_ms = [1e3 * r["wall_s"] for r in loop.stream
+               if r["kind"] == "decode"]
+    toks = {r.request_id: r.tokens.tolist() for r in report.results}
+    # per forward: q, k, v, o and the router in every layer, and the lm
+    # head once
+    routes, prefill_m = matmul_routes(loop.stream, 5 * L, head=1)
+    expected = {"bp_matmul": (5 * L + 1) * (n_prefill + report.steps),
+                "bp_matmul_gemv": routes["gemv"],
+                "bp_matmul_tile": routes["tile"],
+                "paged_attention": L * report.steps, "wkv6": 0}
+    marks = {"measured_serve": time.perf_counter()}
+
+    # -- the same engine config and batching on the plain versions
+    reset_counts()
+    rep_plain = guarded_serve(engine_for(plain_cfg),
+                              _copies(serving, prompts), **pkw)
+    plain_launches = launch_counts()
+    reset_counts()
+    plain_toks = {r.request_id: r.tokens.tolist() for r in rep_plain.results}
+    rows = []
+    if plain_toks != toks:
+        rerun_toks, rows = router_tie_rerun(
+            torch, np, engine, plain_cfg, _copies(serving, prompts),
+            plain_toks, **pkw)
+        check(rerun_toks == toks, f"{cfg.name}: the kernel serve is not "
+                                  f"deterministic")
+    parts = explain_parts(toks, plain_toks, rows)
+    marks["plain_serve"] = time.perf_counter()
+
+    # -- the slab store with an int8 KV cache bypasses K2: every operation
+    # is the plain serve's, so the tokens must be equal, not near
+    slab_cfg = cfg.replace(kv_cache_int8=True)
+    reset_counts()
+    slab_loop = engine_for(slab_cfg, "slab").make_loop(
+        _copies(serving, prompts), **kw)
+    rep_slab = slab_loop.run()
+    no_fault_guard(rep_slab, slab_loop.stream, f"serve_moe {cfg.name} slab")
+    slab_launches = launch_counts()
+    slab_routes, _ = matmul_routes(slab_loop.stream, 5 * L, head=1)
+    n_slab_prefill = sum(1 for r in slab_loop.stream
+                         if r["kind"] == "prefill")
+    slab_expected = {"bp_matmul": (5 * L + 1) * (n_slab_prefill
+                                                  + rep_slab.steps),
+                     "bp_matmul_gemv": slab_routes["gemv"],
+                     "bp_matmul_tile": slab_routes["tile"],
+                     "paged_attention": 0, "wkv6": 0}
+    reset_counts()
+    rep_slab_plain = guarded_serve(engine_for(slab_cfg.replace(
+        matmul_backend="plain"), "slab"), _copies(serving, prompts), **kw)
+    slab_plain_launches = launch_counts()
+    reset_counts()
+    slab_toks = {r.request_id: r.tokens.tolist() for r in rep_slab.results}
+    slab_plain_toks = {r.request_id: r.tokens.tolist()
+                       for r in rep_slab_plain.results}
+    marks["slab_serves"] = time.perf_counter()
+
+    # -- generate(), one request at a time, its first 8 tokens: its groups
+    # hold other tokens than the serve's batches, so capacity drops (and so
+    # streams) may differ; reported, not held
+    gen_parts = []
+    for i, r in enumerate(prompts):
+        g = engine.generate({"tokens": r.prompt[None]},
+                            max_new_tokens=min(r.max_new_tokens, 8),
+                            cache_T=cache_T).tokens[0].tolist()
+        j = next((k for k in range(len(g)) if g[k] != toks[i][k]), None)
+        if j is not None:
+            gen_parts.append({"request": i, "position": j,
+                              "positions_apart": sum(
+                                  a != b for a, b in zip(g, toks[i]))})
+    reset_counts()
+    marks["generate"] = time.perf_counter()
+
+    # -- a profiled two-request serve (4 new tokens each: the profiler's
+    # post-processing grows with the kernels); the decode steps are
+    # annotated, so their device time stands apart from the prefills'
+    profile = _profile_serve(
+        torch, engine, [serving.Request(prompt=r.prompt.copy(),
+                                        max_new_tokens=4,
+                                        arrival_time=r.arrival_time)
+                        for r in prompts[:2]], n_slots, cache_T, sched,
+        annotate=((causal_lm, "decode_step_paged"),),
+        num_blocks=num_blocks)
+    reset_counts()
+    marks["profile"] = time.perf_counter()
+
+    wb = model["weight_bytes"]
+    dec = profile["annotated"].get("decode_step_paged", {})
+    per_step_dev = (dec["device_ms"] / dec["count"]
+                    if dec.get("count") else None)
+    bound_ms = wb["experts_bf16"] / HBM_BYTES_PER_S * 1e3
+    p = serving.percentiles(step_ms, qs=(50, 90))
+    ttft = [r.ttft_wall_s for r in report.results]
+    result = {
+        "model": cfg.name, "layers": L, "d_model": cfg.d_model,
+        "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.resolved_head_dim, "experts": cfg.num_experts,
+        "top_k": cfg.top_k, "expert_d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "mode": cfg.matmul_mode,
+        "kv_cache_int8": False, "cache_backend": "paged",
+        "block_size": block_size, "num_blocks": num_blocks,
+        "n_requests": n_requests, "n_slots": n_slots, "cache_T": cache_T,
+        "init_and_quantize_s": model["init_and_quantize_s"],
+        "init_and_quantize_peak_mem_gb":
+            model["init_and_quantize_peak_mem_gb"],
+        "weight_bytes": wb,
+        "prefill_calls": n_prefill,
+        "prefill_groups": [[r["group_size"], r["pad_to"]]
+                           for r in loop.stream if r["kind"] == "prefill"],
+        "decode_steps": report.steps,
+        "total_new_tokens": report.total_new_tokens,
+        "launches": launches, "expected_launches": expected,
+        "plain_backend_launches": plain_launches,
+        "n_preemptions": report.n_preemptions,
+        "prefix_hit_blocks": report.prefix_hit_blocks,
+        "peak_blocks_in_use": report.peak_blocks_in_use,
+        "tokens_equal_plain_backend": not parts,
+        "plain_parts": parts,
+        "router_rerun_records": rows[:20],
+        "slab_int8kv_launches": slab_launches,
+        "slab_int8kv_expected_launches": slab_expected,
+        "slab_plain_launches": slab_plain_launches,
+        "slab_int8kv_tokens_equal_plain": slab_toks == slab_plain_toks,
+        "generate_parts": gen_parts,
+        "generate_positions_apart": sum(g["positions_apart"]
+                                        for g in gen_parts),
+        "decode_tokens_per_s": report.decode_tokens_per_s,
+        "step_wall_tokens_per_s": step_wall_rate(loop.stream),
+        "decode_step_ms_p50": p["p50"] if p else None,
+        "decode_step_ms_p90": p["p90"] if p else None,
+        "ttft_wall_s_by_request": ttft,
+        "prefill_s": report.prefill_s, "decode_s": report.decode_s,
+        "serve_paged_beside": {
+            k: paged.get(k) for k in ("model", "decode_tokens_per_s",
+                                      "decode_step_ms_p50",
+                                      "decode_step_ms_p90",
+                                      "ttft_wall_s_by_request")},
+        "peak_mem_gb": peak_mem_gb,
+        "decode_step_device_ms": per_step_dev,
+        "decode_step_expert_bound_ms": bound_ms,
+        "first_tokens": toks[0][:8],
+        "profile": profile,
+        "wall_s": _spans(marks, t0),
+    }
+    emit({"phase": "serve_moe", "gpu": gpu, **result})
+    check(all(r.finish_reason == "length" for r in report.results),
+          f"a {cfg.name} request finished for another reason than length")
+    check(all(0 <= t < cfg.vocab_padded for ts in toks.values() for t in ts),
+          "a generated token lies outside the padded vocabulary")
+    for name, want in expected.items():
+        check(launches[name] == want,
+              f"{name} launched {launches[name]} times on the {cfg.name} "
+              f"paged path, expected {want}")
+    for name, want in slab_expected.items():
+        check(slab_launches[name] == want,
+              f"{name} launched {slab_launches[name]} times on the "
+              f"{cfg.name} slab path, expected {want}")
+    check(launches["routed_plain_int8_kv"] == 0,
+          "paged attention was routed to the plain version")
+    for what, pl in (("paged", plain_launches), ("slab", slab_plain_launches)):
+        check(not any(pl.values()),
+              f"the plain backend launched a kernel ({what}): {pl}")
+    check(report.prefix_hit_blocks > 0, f"{cfg.name}: no prefix-sharing hit")
+    check(report.n_preemptions >= 1, f"{cfg.name}: the pool of {num_blocks} "
+                                     f"blocks never ran dry")
+    check(slab_toks == slab_plain_toks,
+          f"{cfg.name}: the int8-KV slab serve differs from its plain "
+          f"version")
+    bad = [q for q in parts if not q["near_tie"]]
+    check(not bad, f"{cfg.name}: kernel and plain serves part beyond a "
+                   f"near-tie: {bad}")
+    full = [ls for ls in step_lengths if min(ls) > 0] or step_lengths
+    shape = sorted(full, key=sum)[len(full) // 2]
+    return result, {**launches, "prefill_rows": prefill_m}, {
+        "lengths": shape, "pages_per_seq": loop.cm.blocks_per_seq,
+        "dims": attention_dims(cfg)}
+
+
+def phase_serve_moe(torch, gpu, paged):
+    """The MoE family, after the rwkv weights are freed: full-width,
+    full-depth moonshot-v1-16b-a3b on ``serve_paged``'s workload and pool
+    size, then a four-request full-width granite-moe-1b-a400m serve (K2's
+    head-dim-64 walk on a served path), each model built, served and freed
+    in turn.  Returns ({model: record}, {model: launches}, {model: decode
+    shape})."""
+    import gc
+    records, launches, shapes = {}, {}, {}
+    for name, spec in MOE_SERVES.items():
+        model = build_moe(torch, name)
+        try:
+            records[name], launches[name], shapes[name] = \
+                phase_serve_moe_model(torch, gpu, model, paged,
+                                      spec["n_requests"], spec["num_blocks"],
+                                      spec["seed"])
+        finally:
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    return records, launches, shapes
+
+
 def wkv6_summary(torch, flush, gpu, shape, launches):
     """The kernels line's numbers for WKV6: one layer's call at the rwkv
     serve's most frequent kernel-route prefill shape, timed in this run
@@ -2917,29 +3434,56 @@ KERNEL_SYMBOLS = {"bp_matmul_gemv": ("bp_gemv",),
 
 
 def _profile_serve(torch, engine, requests, n_slots, cache_T, sched,
-                   **serve_kw):
+                   annotate=(), **serve_kw):
     """Where a serve's time goes: one more serve of ``requests`` under
     ``torch.profiler``, reduced to device-busy time against wall time, the
     number of kernels launched, each of the port's kernels' device time,
     and the kernels that take the most device time.  The profiler slows
-    the host, so ``idle_share`` is an upper bound on the unprofiled run's."""
-    from torch.profiler import ProfilerActivity, profile
+    the host, so ``idle_share`` is an upper bound on the unprofiled run's.
+    ``annotate``: (module, function name) pairs wrapped in a
+    ``record_function`` of that name for the serve; each one's calls,
+    device time (of the kernels launched inside) and host time are in
+    ``annotated``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     def device_us(ev):
         return getattr(ev, "self_device_time_total",
                        getattr(ev, "self_cuda_time_total", 0.0))
 
+    def total_device_us(ev):
+        return getattr(ev, "device_time_total",
+                       getattr(ev, "cuda_time_total", 0.0))
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in annotate]
+    for mod, name, fn in saved:
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            with record_function(_name):
+                return _fn(*a, **k)
+        setattr(mod, name, wrapped)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rep = guarded_serve(engine, requests, n_slots=n_slots,
-                            cache_T=cache_T, sched_cfg=sched, **serve_kw)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rep = guarded_serve(engine, requests, n_slots=n_slots,
+                                cache_T=cache_T, sched_cfg=sched, **serve_kw)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    averages = prof.key_averages()
+    annotated = {e.key: {"count": e.count,
+                         "device_ms": total_device_us(e) / 1e3,
+                         "host_ms": e.cpu_time_total / 1e3}
+                 for e in averages
+                 if e.key in {name for _, name, _ in saved}
+                 and not str(getattr(e, "device_type", "")).endswith("CUDA")}
+    # (the annotations' device-side spans are not kernels)
+    kernels = [e for e in averages
                if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and device_us(e) > 0]
+               and device_us(e) > 0
+               and not any(e.key == name for _, name, _ in saved)]
     busy_ms = sum(device_us(e) for e in kernels) / 1e3
     n_kernels = sum(e.count for e in kernels)
     ours = {name: sum(device_us(e) for e in kernels
@@ -2953,7 +3497,8 @@ def _profile_serve(torch, engine, requests, n_slots, cache_T, sched,
             **{f"{name}_device_ms": ms for name, ms in ours.items()},
             "top_kernels": [{"name": e.key[:60], "count": e.count,
                              "device_ms": device_us(e) / 1e3}
-                            for e in top]}
+                            for e in top],
+            **({"annotated": annotated} if saved else {})}
 
 
 def _flip(torch, np, engine, prompt, serve_toks, gen_toks, cache_T, rid,
@@ -3030,18 +3575,31 @@ def decode_layer_summary(torch, flush, n_slots, launches):
     """The kernels line's numbers for bp_matmul's decode GEMV: the seven
     projections of one qwen2-1.5b decoder layer at the main path's decode
     shape (M = n_slots), and beside them one rwkv6-7b layer's seven
-    projections and its lm_head at the same M, each timed in this run
-    beside the plain version and the bound."""
+    projections and its lm_head, and each MoE model's five per-layer calls
+    (q, k, v, o, router), its router alone and its lm_head, at the same M,
+    each timed in this run beside the plain version and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     ms, plain_ms, bound_ms, bound_by, err, _ = time_chain(
         torch, flush, gen, n_slots, QWEN_LAYER_KN)
     extra = {}
+    from repro_torch.configs.base import get_arch
+    further = []
+    for arch in MOE_SERVES:
+        cfg = get_arch(arch)
+        key = arch.replace("-", "_")
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        q, kv = (d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd)
+        further += [(f"{key}_layer", (q, kv, kv, q[::-1],
+                                      (d, cfg.num_experts))),
+                    (f"{key}_router", ((d, cfg.num_experts),)),
+                    (f"{key}_lm_head", ((d, cfg.vocab_padded),))]
     for name, kn in (("rwkv6_7b_layer", RWKV_LAYER_KN),
-                     ("rwkv6_7b_lm_head", ((4096, 65536),))):
+                     ("rwkv6_7b_lm_head", ((4096, 65536),)), *further):
         r_ms, r_plain, r_bound, r_by, r_err, _ = time_chain(
             torch, flush, gen, n_slots, kn)
         err = max(err, r_err)
-        extra[name] = {"ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
+        extra[name] = {"kn": [list(x) for x in kn], "ms": r_ms,
+                       "plain_ms": r_plain, "bound_ms": r_bound,
                        "bound_by": r_by, "max_abs_err": r_err}
     return {"name": "bp_matmul", "route": "cuda",
             "kernel": "bp_gemv_kernel (decode, M <= 8)",
@@ -3088,15 +3646,24 @@ def prefill_layer_summary(torch, flush, qwen_m, rwkv_m, launches):
                                "library_ms_by_layout": r_lib}}
 
 
-def paged_layer_summary(torch, flush, paged_shape, launches):
+def paged_layer_summary(torch, flush, paged_shape, launches, moe_shapes):
     """The kernels line's numbers for paged attention: one decoder layer's
     call at the paged serve's decode shape (its slots, table width and the
     per-slot positions of its median full-batch step), timed in this run
-    beside the plain version, the library yardstick and the bound."""
+    beside the plain version, the library yardstick and the bound; beside
+    it the same at each MoE serve's decode shape (``moe_shapes``)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     lengths = paged_shape["lengths"]
     row = time_paged_case(torch, flush, gen, len(lengths), lengths,
                           pps=paged_shape["pages_per_seq"])
+    extra = {}
+    for name, sh in moe_shapes.items():
+        r = time_paged_case(torch, flush, gen, len(sh["lengths"]),
+                            sh["lengths"], pps=sh["pages_per_seq"],
+                            dims=sh["dims"])
+        extra[name] = {k: r[k] for k in (
+            "H", "KH", "D", "lengths", "pages_per_seq", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "max_abs_err")}
     return {"name": "paged_attention", "route": "cuda",
             "source": KERNEL_SOURCES["paged_attention"],
             "replaces": "src/repro/kernels/paged_attention/kernel.py:96",
@@ -3108,7 +3675,8 @@ def paged_layer_summary(torch, flush, paged_shape, launches):
                      f"B={len(lengths)}, H 12, KH 2, D 128, block 16, "
                      f"{row['pages_per_seq']} pages per table, positions "
                      f"{row['lengths']}, bf16; library: SDPA (enable_gqa) "
-                     f"on K/V gathered dense beforehand"}
+                     f"on K/V gathered dense beforehand",
+            **extra}
 
 
 #: tile sweep: the row counts timed beside PREFILL_TIME's (the serves'
@@ -3289,6 +3857,8 @@ def main() -> int:
         records.append({"serve_rwkv": serve_rwkv})
         del rwkv
         torch.cuda.empty_cache()
+        moe, moe_launches, moe_shapes = phase_serve_moe(torch, gpu, paged)
+        records.append({"serve_moe": moe})
         bp = decode_layer_summary(torch, flush, serve["n_slots"], launches)
         tile = prefill_layer_summary(torch, flush, launches["prefill_rows"],
                                      rwkv_launches["prefill_rows"], launches)
@@ -3299,8 +3869,11 @@ def main() -> int:
                  "serve_probe": probe_launches,
                  "serve_chaos": chaos_launches,
                  "serve_frontdoor": door_launches,
-                 "serve_rwkv": rwkv_launches}
-        pa = paged_layer_summary(torch, flush, paged_shape, paged_launches)
+                 "serve_rwkv": rwkv_launches,
+                 "serve_moe": moe_launches["moonshot-v1-16b-a3b"],
+                 "serve_moe_granite": moe_launches["granite-moe-1b-a400m"]}
+        pa = paged_layer_summary(torch, flush, paged_shape, paged_launches,
+                                 moe_shapes)
         for entry, key in ((bp, "bp_matmul_gemv"), (tile, "bp_matmul_tile"),
                            (pa, "paged_attention")):
             entry["launches_by_path"] = {p: c.get(key, 0)

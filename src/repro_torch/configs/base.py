@@ -1,9 +1,12 @@
 """Architecture configuration (port of ``repro/configs/base.py``).
 
-The dense causal-LM family (``qwen2-1.5b``) and the RWKV-6 family
-(``family="ssm"``, ``rwkv6-7b``) are ported.  ``get_arch`` raises
-``NotImplementedError`` for every architecture whose family has no port
-yet, instead of handing back a config the models cannot run.
+The dense causal-LM family (``qwen2-1.5b``, ``qwen2-7b``,
+``phi3-medium-14b``, ``granite-34b``), the mixture-of-experts family
+(``family="moe"``: ``granite-moe-1b-a400m``, ``moonshot-v1-16b-a3b``) and
+the RWKV-6 family (``family="ssm"``, ``rwkv6-7b``) are ported.
+``get_arch`` raises ``NotImplementedError`` for every architecture whose
+family has no port yet, instead of handing back a config the models
+cannot run.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ ARCH_IDS = (
 )
 
 #: architectures whose config module has been ported
-PORTED_ARCHS = ("qwen2-1.5b", "rwkv6-7b")
+PORTED_ARCHS = ("qwen2-1.5b", "qwen2-7b", "phi3-medium-14b", "granite-34b",
+                "granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "rwkv6-7b")
 
 
 def pad_vocab(v: int) -> int:
@@ -35,7 +39,7 @@ def pad_vocab(v: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                       # dense | ssm (the families ported)
+    family: str                       # dense | moe | ssm (the families ported)
     num_layers: int
     d_model: int
     num_heads: int
@@ -48,6 +52,10 @@ class ArchConfig:
     rope_theta: float = 1e6
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    # MoE
+    num_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
     # RWKV
     rwkv_head_dim: int = 64
     # numerics: bf16 | bp_exact | bp_approx
@@ -91,6 +99,9 @@ class ArchConfig:
             vocab_size=512,
             head_dim=32,
         )
+        if self.num_experts:
+            kw.update(num_experts=min(self.num_experts, 8),
+                      top_k=min(self.top_k, 2), d_ff=64)
         if self.family == "ssm":
             kw.update(rwkv_head_dim=32, num_heads=4)
         return self.replace(**kw)

@@ -12,10 +12,10 @@
 
 
 plus the slab and block-paged cache helpers the serving engine uses.  The
-dense family (``causal_lm``) has every entry point; the RWKV-6 family
-(``ssm``, ``rwkv_model``) has the slab ones only and raises, as the
-reference does, on ragged prefill, paged caches and verify steps.  Other
-families raise ``NotImplementedError``.
+dense and mixture-of-experts families (``causal_lm``) have every entry
+point; the RWKV-6 family (``ssm``, ``rwkv_model``) has the slab ones only
+and raises, as the reference does, on ragged prefill, paged caches and
+verify steps.  Other families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from repro_torch.core.probe import StatsCollector, probe_supported
 from repro_torch.device import resolve_device
 from repro_torch.models import causal_lm, layers, rwkv_model
 
-_FAMILY_MODULES = {"dense": causal_lm, "ssm": rwkv_model}
+_FAMILY_MODULES = {"dense": causal_lm, "moe": causal_lm, "ssm": rwkv_model}
 #: families whose decode cache is recurrent state, not position-indexed KV
 _RECURRENT_FAMILIES = ("ssm", "hybrid")
 

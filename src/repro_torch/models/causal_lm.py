@@ -1,4 +1,4 @@
-"""Decoder-only causal LM, dense family (port of
+"""Decoder-only causal LM, dense and mixture-of-experts families (port of
 ``repro/models/causal_lm.py``).
 
 Layer parameters are stacked on a leading L axis exactly as the reference's
@@ -16,25 +16,31 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 
 
 def init(gen: torch.Generator, cfg, device=None):
     """Random-init parameters from ``gen`` (same structure as the
     reference's pytree: every layer leaf has a leading L axis)."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     L = cfg.num_layers
+    # drawn in this order: the embedding, then the layers, then the head
+    embed = layers.init_embedding(gen, cfg.vocab_padded, cfg.d_model,
+                                  device=device)
+    stack = {
+        "attn_norm": layers.init_rmsnorm(cfg.d_model, (L,), device),
+        "attn": attention.init_attention(gen, cfg, (L,), device),
+        "ffn_norm": layers.init_rmsnorm(cfg.d_model, (L,), device),
+    }
+    if cfg.num_experts:
+        stack["moe"] = moe.init_moe(gen, cfg, (L,), device)
+    else:
+        stack["ffn"] = layers.init_ffn(gen, cfg.d_model, cfg.d_ff,
+                                       cfg.ffn_type, (L,), device)
     params = {
-        "embed": layers.init_embedding(gen, cfg.vocab_padded, cfg.d_model,
-                                       device=device),
-        "layers": {
-            "attn_norm": layers.init_rmsnorm(cfg.d_model, (L,), device),
-            "attn": attention.init_attention(gen, cfg, (L,), device),
-            "ffn_norm": layers.init_rmsnorm(cfg.d_model, (L,), device),
-            "ffn": layers.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn_type,
-                                   (L,), device),
-        },
+        "embed": embed,
+        "layers": stack,
         "final_norm": layers.init_rmsnorm(cfg.d_model, device=device),
     }
     if not cfg.tie_embeddings:
@@ -57,15 +63,22 @@ def _angles(cfg, positions: torch.Tensor):
                               cfg.rope_theta)
 
 
+def _ffn(lp, h, cfg, mode, probe=None):
+    """The layer's feed-forward: (out, aux loss or None)."""
+    if cfg.num_experts:
+        return moe.moe_ffn(lp["moe"], h, cfg, mode, probe)
+    return layers.ffn(lp["ffn"], h, cfg.ffn_type, mode, cfg.matmul_backend,
+                      probe), None
+
+
 def _block(lp, x, cfg, mode, cos, sin, probe=None):
     h = layers.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
     attn_out, kv = attention.attention_block(lp["attn"], h, cfg, mode,
                                              cos=cos, sin=sin, probe=probe)
     x = x + attn_out
     h = layers.rms_norm(lp["ffn_norm"], x, cfg.norm_eps)
-    x = x + layers.ffn(lp["ffn"], h, cfg.ffn_type, mode, cfg.matmul_backend,
-                       probe)
-    return x, kv
+    f, aux = _ffn(lp, h, cfg, mode, probe)
+    return x + f, kv, aux
 
 
 def cache_specs(cfg, B: int, cache_T: int):
@@ -86,9 +99,10 @@ def zeros_cache(cfg, B: int, cache_T: int, device):
 
 def forward(params, cfg, batch, *, return_cache: bool = False,
             cache_T: Optional[int] = None, probe=None):
-    """Returns (hidden (B,S,D), cache|None).  ``probe``: a
-    ``core.probe.StatsCollector`` drained once per layer (None records
-    nothing)."""
+    """Returns (hidden (B,S,D), aux_loss, cache|None): the MoE layers'
+    load-balancing losses summed (float32; 0 for the dense family).
+    ``probe``: a ``core.probe.StatsCollector`` drained once per layer (None
+    records nothing)."""
     mode = cfg.matmul_mode
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -103,9 +117,12 @@ def forward(params, cfg, batch, *, return_cache: bool = False,
         cache = zeros_cache(cfg, B, max(cache_T or S, S), dev)
     if probe is not None:
         probe.absorb_pending()
+    auxs = []
     for l in range(cfg.num_layers):
-        x, (k, v) = _block(layer_params(params, l), x, cfg, mode, cos, sin,
-                           probe)
+        x, (k, v), aux = _block(layer_params(params, l), x, cfg, mode, cos,
+                                sin, probe)
+        if aux is not None:
+            auxs.append(aux)
         if probe is not None:
             probe.drain_layer()
         if return_cache:
@@ -116,7 +133,9 @@ def forward(params, cfg, batch, *, return_cache: bool = False,
             cache["k"][l, :, :S] = k
             cache["v"][l, :, :S] = v
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return x, cache
+    aux = (torch.stack(auxs).sum() if auxs
+           else torch.zeros((), dtype=torch.float32, device=dev))
+    return x, aux, cache
 
 
 def logits_from_hidden(params, cfg, x: torch.Tensor,
@@ -132,8 +151,8 @@ def prefill(params, cfg, batch, cache_T: int, prompt_lens=None,
     """Run the prompt, return (last-position logits (B, V), KV cache padded
     to cache_T).  ``prompt_lens`` (B,) gathers each row's logits at its own
     last valid position (ragged right-padded batches)."""
-    x, cache = forward(params, cfg, batch, return_cache=True, cache_T=cache_T,
-                       probe=probe)
+    x, _, cache = forward(params, cfg, batch, return_cache=True,
+                          cache_T=cache_T, probe=probe)
     if prompt_lens is None:
         last = x[:, -1:, :]
     else:
@@ -176,8 +195,7 @@ def _decode_common(params, cfg, batch, *, write_fn, attend_fn, probe=None):
         x = x + layers.dense(lp["attn"]["wo"], out, mode, cfg.matmul_backend,
                              probe)
         h = layers.rms_norm(lp["ffn_norm"], x, cfg.norm_eps)
-        x = x + layers.ffn(lp["ffn"], h, cfg.ffn_type, mode,
-                           cfg.matmul_backend, probe)
+        x = x + _ffn(lp, h, cfg, mode, probe)[0]
         if probe is not None:
             probe.drain_layer()
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)

@@ -1,7 +1,7 @@
 """Serving engine: static batched generation + quasi-sync continuous batching
 (port of ``repro/serving/engine.py``, slab and paged slices), for the dense
-family (slab or paged store) and the RWKV-6 family (slab store: its
-recurrent state has no sequence axis to page).
+and mixture-of-experts families (slab or paged store) and the RWKV-6
+family (slab store: its recurrent state has no sequence axis to page).
 
   * ``generate(batch)`` — the static path: one prefill, then the whole batch
     decodes in lock-step, ``decode_chunk`` tokens per executor call, with
@@ -15,8 +15,8 @@ recurrent state has no sequence axis to page).
     token-identical to the static path and across the two stores.
   * speculative decoding (``draft="prompt_lookup"`` or ``"model"``) and
     chunked prefill (``prefill_chunk``) ride the multi-token verify step
-    (``ServeLoop.decode_once_spec``), dense family only, greedy only; both
-    leave the greedy streams unchanged.
+    (``ServeLoop.decode_once_spec``), attention-KV families only, greedy
+    only; both leave the greedy streams unchanged.
 
 The engine is host-side orchestration; device work goes through
 ``serving/executor.py``.  In a ``bp_*`` matmul mode the engine quantizes
@@ -25,8 +25,8 @@ every dense weight to int8 + per-channel scale once, at construction.
 Observability: a ``Telemetry`` handle (``ServeConfig.telemetry``) writes
 the step records as JSONL, the spans as a Chrome trace and, with
 ``profile_dir``, a ``torch.profiler`` trace per serve; the report is a pure
-fold of the records.  A ``SparsityProbe`` (``ServeConfig.probe``, dense
-family in a bp_* mode) runs probed steps that measure the int8
+fold of the records.  A ``SparsityProbe`` (``ServeConfig.probe``, dense or
+MoE family in a bp_* mode) runs probed steps that measure the int8
 activations' bit and value sparsity on the device, and prices each sample
 through the paper's cost models into an ``hw_estimate`` record
 (``ServeReport.hw_measured``); ``ServeReport.deployment`` prices the int8

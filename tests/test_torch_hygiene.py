@@ -216,7 +216,7 @@ def test_unported_families_and_sinks_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         get_arch("zamba2-2.7b")
     with pytest.raises(NotImplementedError, match="not ported"):
-        api.init(_small_cfg(family="moe"), device="cpu")
+        api.init(_small_cfg(family="hybrid"), device="cpu")
     cfg = _small_cfg(matmul_mode="bp_exact")
     path = tmp_path / "metrics.jsonl"
     with serving.Telemetry(metrics_path=str(path)) as tel:

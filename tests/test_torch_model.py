@@ -123,6 +123,30 @@ def test_bridge_keeps_structure_dtypes_and_bits(jax_params):
     assert is_kmajor(tp["layers"]["attn"]["wq"]["w"][1])
 
 
+def _assert_mirrors_reference_tree(params, jcfg):
+    """Same leaves, shapes and dtypes as the reference's ``api.init``."""
+    shapes = jax.eval_shape(lambda k: japi.init(k, jcfg),
+                            jax.random.PRNGKey(0))
+    flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    n_leaves = 0
+    for path, leaf in flat:
+        node = params
+        for k in path:
+            node = node[k.key]
+        assert tuple(node.shape) == tuple(leaf.shape), path
+        assert str(node.dtype).split(".")[-1] == str(leaf.dtype), path
+        n_leaves += 1
+    assert n_leaves == len(list(_leaves(params)))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def test_init_is_seeded_and_mirrors_the_reference_tree():
     _, cfg = _cfgs()
     a = api.init(cfg, seed=3, device="cpu")
@@ -133,16 +157,21 @@ def test_init_is_seeded_and_mirrors_the_reference_tree():
     assert not torch.equal(a["layers"]["ffn"]["w_up"]["w"],
                            c["layers"]["ffn"]["w_up"]["w"])
     jcfg, _ = _cfgs()
-    shapes = jax.eval_shape(lambda k: japi.init(k, jcfg),
-                            jax.random.PRNGKey(0))
-    for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
-        node = a
-        for k in path:
-            node = node[k.key]
-        assert tuple(node.shape) == tuple(leaf.shape), path
+    _assert_mirrors_reference_tree(a, jcfg)
     # truncated at two standard deviations, as the reference
     w = a["layers"]["ffn"]["w_up"]["w"].float()
     assert w.abs().max() <= 2 * SMALL["d_model"] ** -0.5
+    # the MoE tree: a router and bf16 expert stacks in place of the FFN,
+    # an untied lm head
+    moe_kw = dict(SMALL, d_ff=32)
+    jm = jax_get_arch("granite-moe-1b-a400m").reduced().replace(**moe_kw)
+    tm = get_arch("granite-moe-1b-a400m").reduced().replace(**moe_kw)
+    m = api.init(tm, seed=3, device="cpu")
+    assert "ffn" not in m["layers"] and "lm_head" in m
+    assert torch.equal(m["layers"]["moe"]["experts_up"],
+                       api.init(tm, seed=3, device="cpu")["layers"]["moe"][
+                           "experts_up"])
+    _assert_mirrors_reference_tree(m, jm)
 
 
 @pytest.mark.parametrize("mode,int8kv", MODES, ids=MODE_IDS)
@@ -205,6 +234,60 @@ def test_verify_step_matches_op_by_op(jax_params, mode, int8kv):
     assert tuple(lt.shape) == (3, 3, 256)
     _assert_matches(lt, lj, "logits")
     _assert_cache_matches(cj, ct)
+
+
+DENSE_ARCHS = ("qwen2-7b", "phi3-medium-14b", "granite-34b")
+
+
+@pytest.mark.parametrize("mode,int8kv", [MODES[0], MODES[2]],
+                         ids=[MODE_IDS[0], MODE_IDS[2]])
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_dense_configs_prefill_and_decode_match_op_by_op(arch, mode, int8kv):
+    """The other dense configs at ``reduced()``: untied lm heads (K1 in the
+    bp_* modes), granite-34b's GELU FFN, one kv head each."""
+    kw = dict(matmul_mode=mode, kv_cache_int8=int8kv)
+    jcfg = jax_get_arch(arch).reduced().replace(**kw)
+    tcfg = get_arch(arch).reduced().replace(**kw)
+    jp, tp = _both_params(japi.init(jax.random.PRNGKey(0), jcfg), mode)
+    assert "lm_head" in tp
+    rng = np.random.default_rng(3)
+    toks = rng.integers(2, 500, (3, 8)).astype(np.int32)
+    lens = np.asarray([8, 6, 4], np.int32)
+    with jax.disable_jit():
+        lj, cj = japi.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, 12,
+                              prompt_lens=jnp.asarray(lens))
+    lt, ct = api.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks).long()},
+                         12, prompt_lens=torch.from_numpy(lens))
+    _assert_matches(lt, lj, "prefill logits")
+    _assert_cache_matches(cj, ct)
+    nt = rng.integers(2, 500, (3, 1)).astype(np.int32)
+    with jax.disable_jit():
+        lj, cj = japi.decode_step(jp, jcfg, {"tokens": jnp.asarray(nt),
+                                             "cache": cj,
+                                             "cache_len": jnp.asarray(lens)})
+    lt, ct = api.decode_step(tp, tcfg, {"tokens": torch.from_numpy(nt).long(),
+                                        "cache": ct,
+                                        "cache_len": torch.from_numpy(lens)})
+    _assert_matches(lt, lj, "decode logits")
+    _assert_cache_matches(cj, ct)
+
+
+def test_get_arch_mirrors_the_reference_configs():
+    """Every ported architecture, and its ``reduced()`` form, equals the
+    reference's config on every field the port's config has."""
+    import dataclasses
+    from repro_torch.configs.base import PORTED_ARCHS
+    fields = [f.name for f in dataclasses.fields(get_arch("qwen2-1.5b"))]
+    for name in PORTED_ARCHS:
+        for t, j in ((get_arch(name), jax_get_arch(name)),
+                     (get_arch(name).reduced(),
+                      jax_get_arch(name).reduced())):
+            for f in fields:
+                assert getattr(t, f) == getattr(j, f), (name, f)
+            assert t.vocab_padded == j.vocab_padded
+            assert t.resolved_head_dim == j.resolved_head_dim
+    assert {"granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "qwen2-7b",
+            "phi3-medium-14b", "granite-34b"} <= set(PORTED_ARCHS)
 
 
 @pytest.mark.parametrize("cache_len,S", [
