@@ -24,7 +24,10 @@ are missing.  Phases, one JSON line each:
                shapes and ragged prefill ones (K % 16 != 0, N 17 and 260),
                every projection of moonshot-v1-16b-a3b, granite-moe-1b-a400m,
                qwen2-7b, phi3-medium-14b and granite-34b (their routers and
-               untied lm heads included) at M 1, 4, 8 and 256,
+               untied lm heads included) at M 1, 4, 8 and 256, and of
+               qwen2-vl-7b, zamba2-2.7b (in_proj N 10,448: a partial tile)
+               and seamless-m4t-medium (lm head N 256,256) at M 1, 4, 8,
+               128 and 256,
                an A one byte off alignment (the byte loads), inputs with
                -128, and plans that split K (the GEMV's workspace must be
                zero again after them); paged attention within 1e-5 in float32 on the
@@ -49,7 +52,9 @@ are missing.  Phases, one JSON line each:
                BitParticle matmul's GEMV at M 4 and 8 on both models'
                decode shapes, its tile kernel at the serves' prefill rows
                (qwen2-1.5b M 64-2048, rwkv6-7b M 64, 100, 256) beside
-               ``torch._int_mm`` in both weight layouts, and one qwen2-1.5b
+               ``torch._int_mm`` in both weight layouts, every
+               projection of the three last families at M 4 and 128 (beside
+               ``_int_mm`` at 128), and one qwen2-1.5b
                layer's seven projections at the verify steps' rows (M 20
                and 256) beside the same chain of ``torch._int_mm`` calls
                in both weight layouts; WKV6 at rwkv6-7b's
@@ -196,7 +201,44 @@ are missing.  Phases, one JSON line each:
                ``serve_paged``'s, and a profiled two-request serve's device
                time per decode step (its steps annotated) against the
                expert stacks' byte bound (every expert is read every step:
-               the capacity buffer spans all of them).
+               the capacity buffer spans all of them);
+  serve_vlm    the fifth main path, after the MoE weights are freed:
+               full-width, full-depth qwen2-vl-7b (28 layers, d 3584, 28
+               heads on 4 kv heads of 128, M-RoPE sections 16/24/24, vocab
+               152,064) in bp_exact on the paged store, bf16 KV, with
+               per-request ``extras``: six requests open with a vision span
+               of 64-256 image-pad tokens and bf16-scale patch embeddings
+               (requests 0 and 1: equal tokens, other images), two
+               text-only ones share a 128-token system prompt.  K1 7 per
+               layer per forward plus the lm head, per route, and K2 once
+               per layer per decode step, exactly; tokens equal the plain
+               serve, a slab serve and every request's own ``generate()``
+               except near-tie flips, each reported; only the text-only
+               pair shares prefix blocks (1-9); a ``generate()`` on three
+               unequal M-RoPE rows (the image on an 8 x 16 grid) runs
+               ``mrope_angles`` on the card, kernel against plain;
+  serve_hybrid full-width, full-depth zamba2-2.7b (54 Mamba-2 layers, d
+               2560, SSM state 64, a shared attention + GELU block every 6
+               layers, vocab 32,000) in bp_exact on the slab store; prompts
+               of 64-256 tokens (the chunked SSD) and of 100 and 77 (the
+               step recurrence).  K1 2 per Mamba layer and 6 per shared
+               block per forward plus the lm head, exactly; tokens equal
+               the plain serve and ``generate()`` except near-tie flips,
+               a near-tie lying within 4 bf16 units or within the model's
+               float32 noise floor measured in the run, as for rwkv6-7b
+               (the chunked prefill against the step recurrence);
+  serve_audio  full-width, full-depth seamless-m4t-medium (12 encoder and
+               12 decoder layers, d 1024, vocab 256,206) in bp_exact on the
+               slab store, ``src_embeds`` of 128 frames per request but one
+               of 80 (the ``cross_len`` mask over a 128-position pool).  K1
+               6 per encoder layer, 2 per decoder layer's cross K/V, 8 per
+               decoder layer and the lm head, exactly; tokens equal the
+               plain serve and ``generate()`` stream for stream except
+               near-tie flips.  Each of the three reports weight bytes,
+               peak memory, step p50/p90, decode tokens/s, TTFT, and a
+               profiled one-request serve's device time per decode step
+               and idle share; each engine and model is freed before the
+               next.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits 1.
@@ -251,6 +293,13 @@ FURTHER_CONFIGS = ("moonshot-v1-16b-a3b", "granite-moe-1b-a400m", "qwen2-7b",
 # rows those projections are checked at: the decode GEMV's 1, 4 and 8, and
 # one prefill's 256 (the tiles)
 FURTHER_CHECK_M = (1, 4, 8, 256)
+# the last three families, served by serve_vlm, serve_hybrid and
+# serve_audio: their projections are checked at FURTHER_CHECK_M and at
+# 128 (a prefill's tiles), before any serve runs them.  zamba's in_proj (N
+# 10,448: a multiple of 16, not of 32) leaves a partial tile and a partial
+# GEMV column group; seamless's lm head (N 256,256) is the widest GEMV
+NEW_CONFIGS = ("qwen2-vl-7b", "zamba2-2.7b", "seamless-m4t-medium")
+NEW_CHECK_M = (1, 4, 8, 128, 256)
 # ragged shapes of the reference's kernel tests, and ragged prefill shapes:
 # K not a multiple of 16 (byte loads), N 17 and 260
 RAGGED_MKN = ((8, 128, 128), (16, 256, 384), (256, 256, 256), (5, 33, 17),
@@ -487,13 +536,41 @@ def paged_case(torch, gen, B, H, KH, D, n_blocks, bs, pps, lengths, dtype):
     return q, kp, vp, tables, lens
 
 
+def family_layer_kn(cfg, encoder=False):
+    """(K, N) of the BitParticle matmuls of one repeating unit of a new
+    family's forward, in call order: a qwen2-vl decoder layer's 7, a
+    zamba super-block (``attn_every`` Mamba layers' in and out
+    projections, then the shared block's q, k, v, o, FFN up and down), a
+    seamless decoder layer's 8 (self q, k, v, o, cross q and o, FFN up and
+    down), or with ``encoder`` its encoder layer's 6 (q, k, v, o, FFN up
+    and down: what its prefill runs at the source's rows)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv = (d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd)
+    attn = (q, kv, kv, q[::-1])
+    ffn = ((d, cfg.d_ff), (cfg.d_ff, d))
+    if cfg.family == "vlm":
+        return attn + ((d, cfg.d_ff),) + ffn
+    if cfg.family == "hybrid":
+        mamba = projection_kn(cfg)[:2]
+        return tuple(mamba) * cfg.attn_every + attn + ffn
+    if encoder:
+        return attn + ffn
+    return attn + (q, q[::-1]) + ffn
+
+
 def projection_kn(cfg):
     """(K, N) of each distinct BitParticle matmul of a config's forward:
-    q, k / v, o, the dense FFN's in and out or the MoE router, and the
-    untied lm head (on the padded vocabulary)."""
+    a hybrid's Mamba in and out projections, q, k / v, o, the dense FFN's
+    in and out or the MoE router, and the untied lm head (on the padded
+    vocabulary)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    kn = [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd),
-          (cfg.num_heads * hd, d)]
+    kn = []
+    if cfg.family == "hybrid":
+        di = 2 * d
+        kn += [(d, 2 * di + 2 * cfg.ssm_state + di // cfg.ssm_head_dim),
+               (di, d)]
+    kn += [(d, cfg.num_heads * hd), (d, cfg.num_kv_heads * hd),
+           (cfg.num_heads * hd, d)]
     if cfg.num_experts:
         kn.append((d, cfg.num_experts))
     else:
@@ -596,6 +673,9 @@ def check_bp_matmul(torch):
     further = [(m, k, n) for name in FURTHER_CONFIGS
                for k, n in projection_kn(get_arch(name))
                for m in FURTHER_CHECK_M]
+    further += [(m, k, n) for name in NEW_CONFIGS
+                for k, n in projection_kn(get_arch(name))
+                for m in NEW_CHECK_M]
     shapes += further
     shapes += list(RAGGED_MKN)
     # A one byte off 16-byte alignment (K a multiple of 16): the kernels'
@@ -655,7 +735,7 @@ def check_bp_matmul(torch):
             "max_abs_err_by_route": max_err,
             "split_plans": split_plans, "workspace_left_nonzero": ws_left,
             "further_configs": {name: projection_kn(get_arch(name))
-                                for name in FURTHER_CONFIGS},
+                                for name in FURTHER_CONFIGS + NEW_CONFIGS},
             "further_cases": 4 * len(further),
             "parity": "ok" if not failures else "FAILED",
             "failures": failures[:10]}
@@ -698,7 +778,7 @@ def check_paged_attention(torch):
     # dim 64 (granite-moe), G 7 (qwen2-7b), G 4 (phi3), G 48 on one kv head
     # (granite-34b: six groups of 8)
     from repro_torch.configs.base import get_arch
-    for name in FURTHER_CONFIGS:
+    for name in FURTHER_CONFIGS + ("qwen2-vl-7b",):
         h, kh, d = attention_dims(get_arch(name))
         lengths = torch.randint(0, bs * pps, (4,), generator=gen,
                                 device="cuda").tolist()
@@ -977,6 +1057,25 @@ def phase_kernel_time(torch, gpu, flush):
           "library": "torch._int_mm (exact mode), both weight layouts; "
                      "library_ms is the faster",
           "event_floor_ms": floor, "rows": tile_rows})
+    from repro_torch.configs.base import get_arch
+    new_rows = []
+    for name in NEW_CONFIGS:
+        for k, n in projection_kn(get_arch(name)):
+            for m in (4, 128):
+                row = time_case(torch, flush, gen, m, k, n, False,
+                                plain_iters=3 if m * k * n > 2 ** 34
+                                else 10)
+                new_rows.append({"config": name, **row})
+    ops.reset_launches()
+    emit({"phase": "kernel_time", "gpu": gpu, "kernel": "bp_matmul",
+          "route": "decode GEMV (M 4) and prefill tiles (M 128)",
+          "shape": "every distinct projection of qwen2-vl-7b, zamba2-2.7b "
+                   "(Mamba in_proj N 10,448, out_proj, the shared block, "
+                   "lm head) and seamless-m4t-medium (lm head N 256,256), "
+                   "exact mode",
+          "library": "torch._int_mm at M 128, both weight layouts; "
+                     "library_ms is the faster",
+          "event_floor_ms": floor, "rows": new_rows})
     verify_rows = [verify_layer_row(torch, flush, gen, m)
                    for m in VERIFY_M]
     ops.reset_launches()
@@ -1005,7 +1104,8 @@ def phase_kernel_time(torch, gpu, flush):
                    "outputs)",
           "library": "none: no single PyTorch call computes WKV6",
           "rows": wkv_rows})
-    return rows + tile_rows + verify_rows + pa_rows + wkv_rows, verify_rows
+    return (rows + tile_rows + new_rows + verify_rows + pa_rows + wkv_rows,
+            verify_rows)
 
 
 def verify_layer_row(torch, flush, gen, m):
@@ -2740,33 +2840,37 @@ def _rwkv_requests(serving, rng, vocab: int, n: int):
     return reqs
 
 
-def rwkv_noise_floor(torch, cfg, params, prompts, chunk=64):
-    """How far two exact evaluations of one rwkv prefill lie apart: for
-    every prompt whose length is a multiple of the chunk, the largest
-    logit difference between the plain version's chunked form (a prefill
-    of the whole prompt) and its step recurrence (a prefill of all but the
-    last token, then a decode step of it): the same function, its float32
-    sums in another order.  Beside it, the kernel's chunked prefill against
-    the plain version's.  ``tests/test_torch_rwkv_depth.py`` measures the
-    same gap in the JAX reference."""
-    from repro_torch.models import rwkv_model
+def recurrent_noise_floor(torch, cfg, params, prompts, chunk=64):
+    """How far two exact evaluations of one prefill of a recurrent model
+    (rwkv6-7b, zamba2-2.7b) lie apart: for every prompt whose length is a
+    multiple of the chunk, the largest logit difference between the plain
+    versions' prefill of the whole prompt (the chunked form) and a prefill
+    of all but its last token (the step recurrence) followed by a decode
+    step of it: the same function, its float32 sums in another order.
+    Beside it, the kernels' chunked prefill against the plain version's.
+    ``tests/test_torch_rwkv_depth.py`` measures the same gap in the JAX
+    reference; ``tests/test_torch_hybrid.py`` finds the reference and the
+    port apart by up to 0.074 at zamba's 12 reduced layers."""
+    from repro_torch.models import api
     plain = cfg.replace(matmul_backend="plain")
     rows = []
     for i, r in enumerate(prompts):
-        if r.prompt_len % chunk:
+        S = r.prompt_len
+        if S % chunk:
             continue
         tokens = torch.as_tensor(
             r.prompt[None], device=params["embed"]["table"].device).long()
         with torch.no_grad():
-            lp = rwkv_model.prefill(params, plain,
-                                    {"tokens": tokens})[0][0].float()
-            _, state = rwkv_model.prefill(params, plain,
-                                          {"tokens": tokens[:, :-1]})
-            ls = rwkv_model.decode_step(params, plain, {
-                "tokens": tokens[:, -1:], "cache": state})[0][0].float()
-            lk = rwkv_model.prefill(params, cfg,
-                                    {"tokens": tokens})[0][0].float()
-        rows.append({"request": i, "prompt_len": r.prompt_len,
+            lp = api.prefill(params, plain, {"tokens": tokens},
+                             S + 1)[0][0].float()
+            _, state = api.prefill(params, plain, {"tokens": tokens[:, :-1]},
+                                   S + 1)
+            ls = api.decode_step(params, plain, {
+                "tokens": tokens[:, -1:], "cache": state,
+                "cache_len": S - 1})[0][0].float()
+            lk = api.prefill(params, cfg, {"tokens": tokens},
+                             S + 1)[0][0].float()
+        rows.append({"request": i, "prompt_len": S,
                      "plain_chunked_vs_step": (lp - ls).abs().max().item(),
                      "kernel_vs_plain": (lk - lp).abs().max().item()})
     return rows
@@ -2866,7 +2970,7 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
     # tenths (two plain evaluations included; the reference amplifies as
     # much, tests/test_torch_rwkv_depth.py), so a stream may flip where
     # two logits lie within that floor; such a flip is a near-tie here
-    noise = rwkv_noise_floor(torch, cfg, params, prompts, chunk)
+    noise = recurrent_noise_floor(torch, cfg, params, prompts, chunk)
     tie = max(r["plain_chunked_vs_step"] for r in noise)
     kernel_dev = max(r["kernel_vs_plain"] for r in noise)
 
@@ -2979,11 +3083,11 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
         "chunk": chunk}
 
 
-def build_moe(torch, name):
-    """Full-width, full-depth MoE model in bp_exact: random weights from
-    seed 0, the expert stacks drawn a layer at a time straight into bf16,
-    every dense weight (attention, router, lm head) quantized to int8
-    once.  Peak device memory of the initialisation and quantization is
+def build_full(torch, name):
+    """Full-width, full-depth model in bp_exact: random weights from seed
+    0 (an MoE's expert stacks drawn a layer at a time straight into bf16),
+    every dense weight (attention, router, SSM projections, lm head)
+    quantized to int8 once.  Peak device memory of the initialisation and quantization is
     measured on its own."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models import api
@@ -3388,12 +3492,450 @@ def phase_serve_moe(torch, gpu, paged):
     import gc
     records, launches, shapes = {}, {}, {}
     for name, spec in MOE_SERVES.items():
-        model = build_moe(torch, name)
+        model = build_full(torch, name)
         try:
             records[name], launches[name], shapes[name] = \
                 phase_serve_moe_model(torch, gpu, model, paged,
                                       spec["n_requests"], spec["num_blocks"],
                                       spec["seed"])
+        finally:
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    return records, launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# the last three model families: vision-language, hybrid, encoder-decoder
+# ---------------------------------------------------------------------------
+
+#: Qwen2-VL's image placeholder token: the positions a vision span covers
+IMAGE_PAD_TOKEN = 151655
+
+
+def _grow_extra(np, extra, length):
+    """A request's extras as a batch of one for a prefill of its prompt
+    plus generated tokens: the per-position vision arrays continue as text
+    (zero embeddings, mask off), M-RoPE ``positions`` (3, S) continue as a
+    decode step places them (at the token's index, on all three rows), a
+    source stays as it is."""
+    out = {}
+    for k, v in (extra or {}).items():
+        v = np.asarray(v)
+        if k == "positions":
+            grow = np.arange(v.shape[1], length)
+            out[k] = np.concatenate(
+                [v, np.broadcast_to(grow, (3, grow.size))], axis=1)[:, None]
+            continue
+        if k in ("vision_embeds", "vision_mask") and v.shape[0] < length:
+            v = np.concatenate([v, np.zeros((length - v.shape[0],)
+                                            + v.shape[1:], v.dtype)])
+        out[k] = v[None]
+    return out
+
+
+def _vlm_workload(serving, np, vocab, d, n=8, system_len=128):
+    """qwen2-vl-7b requests: six with a leading vision span of 64-256
+    positions (image-pad tokens, bf16-scale patch embeddings from a seed),
+    requests 0 and 1 with equal tokens and different images; two text-only
+    requests (6, 7) sharing a ``system_len``-token system prompt.  Prompt
+    lengths are distinct between the vision and the text requests, so no
+    admission group mixes requests with and without extras."""
+    rng = np.random.default_rng(8)
+    spans = (128, 128, 64, 192, 256, 96)
+    texts = (48, 48, 40, 24, 16, 60)
+    prompts, extras = [], {}
+    for i, (span, own) in enumerate(zip(spans, texts)):
+        if i == 1:
+            toks = prompts[0].copy()
+        else:
+            toks = np.concatenate([np.full(span, IMAGE_PAD_TOKEN),
+                                   rng.integers(2, vocab, own)]).astype(
+                                       np.int32)
+        mask = np.zeros(len(toks), bool)
+        mask[:span] = True
+        emb = (rng.standard_normal((len(toks), d)) * d ** -0.5).astype(
+            np.float32)
+        emb[~mask] = 0.0
+        prompts.append(toks)
+        extras[i] = {"vision_embeds": emb, "vision_mask": mask}
+    system = rng.integers(2, vocab, system_len)
+    for own in (20, 36):
+        prompts.append(np.concatenate([system, rng.integers(2, vocab, own)])
+                       .astype(np.int32))
+    reqs = [serving.Request(prompt=p, max_new_tokens=int(rng.integers(8, 33)),
+                            arrival_time=float(2 * i), request_id=i)
+            for i, p in enumerate(prompts[:n])]
+    return reqs, extras
+
+
+def _mrope_positions(np, span, length, grid_w=16):
+    """Qwen2-VL's (t, h, w) rows for one image of ``span`` patches on a
+    ``grid_w``-wide grid followed by text: the image at t 0 on its grid,
+    the text counting on from the grid's largest index on all three
+    rows."""
+    pos = np.zeros((3, length), np.int64)
+    idx = np.arange(span)
+    pos[1, :span] = idx // grid_w
+    pos[2, :span] = idx % grid_w
+    start = int(pos[:, :span].max()) + 1
+    pos[:, span:] = start + np.arange(length - span)
+    return pos
+
+
+def _hybrid_workload(serving, np, vocab, n=8):
+    """zamba2-2.7b requests: prompts of 64, 128, 192 or 256 tokens (the
+    chunked SSD), except requests 3 and 6, of 100 and 77 (the step
+    recurrence)."""
+    rng = np.random.default_rng(9)
+    reqs = []
+    for i in range(n):
+        plen = {3: 100, 6: 77}.get(i, int(rng.choice((64, 128, 192, 256))))
+        reqs.append(serving.Request(
+            prompt=rng.integers(2, vocab, plen).astype(np.int32),
+            max_new_tokens=int(rng.integers(8, 33)),
+            arrival_time=float(2 * i), request_id=i))
+    return reqs, {}
+
+
+#: seamless-m4t-medium: source frames per request (one shorter than the
+#: pool's 128 cross positions) and decoder prompt lengths (request 5's of
+#: its own: a group stacks its sources)
+AUDIO_FRAMES = (128, 128, 128, 128, 128, 80, 128, 128)
+AUDIO_PROMPTS = (8, 12, 8, 16, 12, 5, 16, 8)
+
+
+def _audio_workload(serving, np, vocab, d):
+    rng = np.random.default_rng(10)
+    reqs, extras = [], {}
+    for i, (frames, plen) in enumerate(zip(AUDIO_FRAMES, AUDIO_PROMPTS)):
+        reqs.append(serving.Request(
+            prompt=rng.integers(2, vocab, plen).astype(np.int32),
+            max_new_tokens=int(rng.integers(8, 33)),
+            arrival_time=float(2 * i), request_id=i))
+        extras[i] = {"src_embeds": (rng.standard_normal((frames, d))
+                                    * d ** -0.5).astype(np.float32)}
+    return reqs, extras
+
+
+def _forward_routes(cfg, stream):
+    """K1's launches per route that a serve's step stream predicts, for
+    the three families (every call at M > 8 rows takes the tiles, else the
+    GEMV): qwen2-vl 7 per layer at the prefill's rows; zamba 2 per Mamba
+    layer and 6 per shared block (q, k, v, o, FFN up, down); seamless 6
+    per encoder layer and 2 per decoder layer's cross K/V at the source's
+    rows (group x frames, always above 8), 8 per decoder layer at the
+    prompt's; each lm head once on the last positions (the GEMV while the
+    group is at most 8 rows); a decode step all of them at one row per
+    slot."""
+    from repro_torch.kernels.bitparticle_matmul.ops import GEMV_MAX_M
+    L = cfg.num_layers
+    if cfg.family == "vlm":
+        src_calls, per_tok = 0, 7 * L
+    elif cfg.family == "hybrid":
+        src_calls, per_tok = 0, 2 * L + 6 * (L // cfg.attn_every)
+    else:
+        src_calls, per_tok = 6 * cfg.encoder_layers + 2 * L, 8 * L
+    want, rows = {"gemv": 0, "tile": 0}, []
+    for r in stream:
+        if r["kind"] == "prefill":
+            m = r["group_size"] * r["pad_to"]
+            # the tiles' most frequent rows: the source's for seamless
+            # (group x its usual 128 frames), the prompt's otherwise
+            rows.append(r["group_size"] * max(AUDIO_FRAMES) if src_calls
+                        else m)
+            want["tile"] += src_calls
+            want["tile" if m > GEMV_MAX_M else "gemv"] += per_tok
+            want["tile" if r["group_size"] > GEMV_MAX_M else "gemv"] += 1
+        elif r["kind"] == "decode":
+            want["gemv"] += per_tok + 1
+    n = sum(r["kind"] in ("prefill", "decode") for r in stream)
+    n_pre = sum(r["kind"] == "prefill" for r in stream)
+    total = (per_tok + 1) * n + src_calls * n_pre
+    common = max(set(rows), key=lambda m: (rows.count(m), m)) if rows else 0
+    return want, total, common
+
+
+FAMILY_SERVES = {
+    "qwen2-vl-7b": {"phase": "serve_vlm", "backend": "paged"},
+    "zamba2-2.7b": {"phase": "serve_hybrid", "backend": "slab"},
+    "seamless-m4t-medium": {"phase": "serve_audio", "backend": "slab"},
+}
+
+
+def phase_serve_family(torch, gpu, model, paged, n_slots=4, lead_window=4,
+                       block_size=16):
+    """One of the last three model families at full width and depth, on
+    its main path: K1 on every projection (and K2 on the VLM's paged
+    decode), from seeded random weights, bp_exact, 8 requests on 4 slots.
+    Beside it the same engine config on the plain versions, each request's
+    ``generate()`` (with its extras), a family check (the VLM: the slab
+    store against the paged one, text-only prefix hits, the two requests
+    with equal tokens and different images, and a ``generate()`` on three
+    unequal M-RoPE position rows; the audio family: the 80-frame source's
+    ``cross_len``), and a profiled one-request serve whose decode steps
+    are annotated."""
+    import numpy as np
+
+    from repro_torch import serving
+    from repro_torch.models import causal_lm, encdec, zamba_model
+
+    cfg, params = model["cfg"], model["params"]
+    spec = FAMILY_SERVES[cfg.name]
+    L = cfg.num_layers
+    plain_cfg = cfg.replace(matmul_backend="plain")
+
+    def engine_for(c, backend=spec["backend"]):
+        return serving.ServingEngine(
+            c, params, serving.ServeConfig(max_new_tokens=32,
+                                           temperature=0.0,
+                                           cache_backend=backend,
+                                           block_size=block_size),
+            device="cuda")
+
+    if cfg.family == "vlm":
+        prompts, extras = _vlm_workload(serving, np, cfg.vocab_size,
+                                        cfg.d_model)
+        annotate = (causal_lm, "decode_step_paged")
+    elif cfg.family == "hybrid":
+        prompts, extras = _hybrid_workload(serving, np, cfg.vocab_size)
+        annotate = (zamba_model, "decode_step")
+    else:
+        prompts, extras = _audio_workload(serving, np, cfg.vocab_size,
+                                          cfg.d_model)
+        annotate = (encdec, "decode_step")
+    extras = extras or None
+    # a near-tie: within 4 bf16 units of the top logit, or, for the
+    # hybrid, within the model's float32 noise floor measured in this run
+    noise = (recurrent_noise_floor(torch, cfg, params, prompts)
+             if cfg.family == "hybrid" else None)
+    tie = max((r["plain_chunked_vs_step"] for r in noise), default=0.0) \
+        if noise else 0.0
+    engine = engine_for(cfg)
+    sched = serving.SchedulerConfig(lead_window=lead_window)
+    cache_T = max(r.prompt_len + r.max_new_tokens for r in prompts) + 8
+    kw = dict(n_slots=n_slots, cache_T=cache_T, sched_cfg=sched,
+              extras=extras)
+    t0 = time.perf_counter()
+    # warm-up serve (allocator, kernels): not measured
+    guarded_serve(engine, _copies(serving, prompts[:2]), **kw)
+    torch.cuda.synchronize()
+
+    # -- the measured main-path run: counts zeroed just before, read after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loop = engine.make_loop(_copies(serving, prompts), **kw)
+    step_lengths, cross_lens = [], set()
+
+    def on_step(lp):
+        step_lengths.append(lp.cm.cache_len_vector().tolist())
+        if cfg.family == "audio":
+            cross_lens.update(lp.cm.cache["cross_len"].tolist())
+
+    loop.on_step_end = on_step
+    report = loop.run()
+    no_fault_guard(report, loop.stream, spec["phase"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    prefills = [r for r in loop.stream if r["kind"] == "prefill"]
+    step_ms = [1e3 * r["wall_s"] for r in loop.stream
+               if r["kind"] == "decode"]
+    toks = {r.request_id: r.tokens.tolist() for r in report.results}
+    routes, n_k1, prefill_m = _forward_routes(cfg, loop.stream)
+    expected = {"bp_matmul": n_k1, "bp_matmul_gemv": routes["gemv"],
+                "bp_matmul_tile": routes["tile"],
+                "paged_attention": L * report.steps
+                if spec["backend"] == "paged" else 0, "wkv6": 0}
+    marks = {"measured_serve": time.perf_counter()}
+
+    def flips(got, want, names, eng=engine):
+        return [_flip(torch, np, eng, prompts[i].prompt, got[i], want[i],
+                      cache_T, i, names=names, tie=tie,
+                      extra=(extras or {}).get(i))
+                for i in sorted(got) if got[i] != want[i]]
+
+    # -- the same engine config and batching on the plain versions
+    reset_counts()
+    rep_plain = guarded_serve(engine_for(plain_cfg),
+                              _copies(serving, prompts), **kw)
+    plain_launches = launch_counts()
+    reset_counts()
+    plain_toks = {r.request_id: r.tokens.tolist() for r in rep_plain.results}
+    plain_flips = flips(toks, plain_toks, ("kernel", "plain"))
+    marks["plain_serve"] = time.perf_counter()
+
+    # -- generate(), one request at a time, with its extras
+    gen_toks = {}
+    for i, r in enumerate(prompts):
+        batch = {"tokens": r.prompt[None],
+                 **_grow_extra(np, (extras or {}).get(i), r.prompt_len)}
+        gen_toks[i] = engine.generate(batch, max_new_tokens=r.max_new_tokens,
+                                      cache_T=cache_T).tokens[0].tolist()
+    gen_flips = flips(toks, gen_toks, ("serve", "generate"))
+    reset_counts()
+    marks["generate"] = time.perf_counter()
+
+    family = {}
+    if cfg.family == "vlm":
+        # the slab store (bf16 KV: K1 only) against the paged one
+        reset_counts()
+        rep_slab = guarded_serve(engine_for(cfg, "slab"),
+                                 _copies(serving, prompts), **kw)
+        slab_launches = launch_counts()
+        reset_counts()
+        slab_toks = {r.request_id: r.tokens.tolist()
+                     for r in rep_slab.results}
+        # M-RoPE on the card: request 0's image as a 8 x 16 grid at t 0,
+        # its text on from the grid's largest index, kernel and plain
+        r0 = prompts[0]
+        span = int(extras[0]["vision_mask"].sum())
+        pos = _mrope_positions(np, span, r0.prompt_len)
+        mrope_extra = dict(extras[0], positions=pos)
+        mb = {"tokens": r0.prompt[None],
+              **_grow_extra(np, mrope_extra, r0.prompt_len)}
+        mrope = engine.generate(mb, max_new_tokens=8,
+                                cache_T=cache_T).tokens[0].tolist()
+        mrope_plain = engine_for(plain_cfg).generate(
+            mb, max_new_tokens=8, cache_T=cache_T).tokens[0].tolist()
+        reset_counts()
+        family = {
+            "slab_tokens_equal_paged": slab_toks == toks,
+            "slab_flips": flips(slab_toks, toks, ("slab", "paged")),
+            "slab_launches": slab_launches,
+            "equal_token_pair_streams_differ": toks[0] != toks[1],
+            "mrope_rows_distinct": bool((pos[0] != pos[1]).any()
+                                        and (pos[1] != pos[2]).any()),
+            "mrope_generate": mrope, "mrope_generate_plain": mrope_plain,
+            "mrope_differs_from_default_positions": mrope != gen_toks[0][:8],
+        }
+        marks["slab_and_mrope"] = time.perf_counter()
+    elif cfg.family == "audio":
+        family = {"cross_lens_seen": sorted(cross_lens),
+                  "cross_positions_per_slot":
+                      int(loop.cm.cache["cross_k"].shape[2])}
+
+    # -- a profiled one-request serve (4 new tokens: the profiler's
+    # post-processing grows with the kernels, ~0.6 ms each); the decode
+    # steps are annotated, so their device time stands apart
+    profile = _profile_serve(
+        torch, engine, _copies(serving, prompts[:1], max_new_tokens=4),
+        n_slots, cache_T, sched, annotate=(annotate,),
+        extras={0: extras[0]} if extras else None)
+    reset_counts()
+    marks["profile"] = time.perf_counter()
+    dec = profile["annotated"].get(annotate[1], {})
+    per_step_dev = (dec["device_ms"] / dec["count"]
+                    if dec.get("count") else None)
+
+    wb = model["weight_bytes"]
+    p = serving.percentiles(step_ms, qs=(50, 90))
+    result = {
+        "phase": spec["phase"], "gpu": gpu, "model": cfg.name,
+        "family": cfg.family, "layers": L, "d_model": cfg.d_model,
+        "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "mode": cfg.matmul_mode,
+        "cache_backend": spec["backend"], "n_requests": len(prompts),
+        "n_slots": n_slots, "cache_T": cache_T,
+        "prompt_lens": [r.prompt_len for r in prompts],
+        "init_and_quantize_s": model["init_and_quantize_s"],
+        "init_and_quantize_peak_mem_gb":
+            model["init_and_quantize_peak_mem_gb"],
+        "weight_bytes": wb,
+        "prefill_calls": len(prefills),
+        "prefill_groups": [[r["group_size"], r["pad_to"]] for r in prefills],
+        "decode_steps": report.steps,
+        "total_new_tokens": report.total_new_tokens,
+        "launches": launches, "expected_launches": expected,
+        "plain_backend_launches": plain_launches,
+        "prefix_hit_blocks": report.prefix_hit_blocks,
+        "n_preemptions": report.n_preemptions,
+        "tokens_equal_plain_backend": not plain_flips,
+        "plain_flips": plain_flips,
+        "generate_equal_serve": not gen_flips,
+        "generate_flips": gen_flips,
+        "noise_floor": noise, "near_tie_logit_gap": tie,
+        **family,
+        "decode_tokens_per_s": report.decode_tokens_per_s,
+        "step_wall_tokens_per_s": step_wall_rate(loop.stream),
+        "decode_step_ms_p50": p["p50"] if p else None,
+        "decode_step_ms_p90": p["p90"] if p else None,
+        "ttft_wall_s_by_request": [r.ttft_wall_s for r in report.results],
+        "prefill_s": report.prefill_s, "decode_s": report.decode_s,
+        "serve_paged_beside": {
+            k: paged.get(k) for k in ("decode_tokens_per_s",
+                                      "decode_step_ms_p50",
+                                      "decode_step_ms_p90")},
+        "peak_mem_gb": peak_mem_gb,
+        "decode_step_device_ms": per_step_dev,
+        "decode_step_weight_bound_ms":
+            (wb["int8_dense"] / HBM_BYTES_PER_S * 1e3),
+        "first_tokens": toks[0][:8],
+        "profile": profile,
+        "wall_s": _spans(marks, t0),
+    }
+    emit(result)
+    check(all(r.finish_reason == "length" for r in report.results),
+          f"a {cfg.name} request finished for another reason than length")
+    check(all(0 <= t < cfg.vocab_padded for ts in toks.values() for t in ts),
+          "a generated token lies outside the padded vocabulary")
+    for name, want in expected.items():
+        check(launches[name] == want,
+              f"{name} launched {launches[name]} times on the {cfg.name} "
+              f"path, expected {want}")
+    check(not any(plain_launches.values()),
+          f"the plain backend launched a kernel: {plain_launches}")
+    for what, fl in (("the plain-version serve", plain_flips),
+                     ("generate()", gen_flips),
+                     ("the slab serve", family.get("slab_flips", []))):
+        bad = [f for f in fl if not f["near_tie"]]
+        check(not bad, f"{cfg.name}: serve and {what} differ beyond a "
+                       f"near-tie: {bad}")
+    if cfg.family == "vlm":
+        check(launches["routed_plain_int8_kv"] == 0,
+              "paged attention was routed to the plain version")
+        # only the text-only pair shares: its 128-token system prompt is 8
+        # full blocks (a partial hit adds one); every vision request opens
+        # with image-pad tokens, and would share them were it not kept out
+        # of the trie
+        check(1 <= report.prefix_hit_blocks <= 9,
+              f"{cfg.name}: {report.prefix_hit_blocks} prefix-hit blocks, "
+              f"expected the text-only pair's 1-9")
+        sl = family["slab_launches"]
+        check(sl["paged_attention"] == 0 and sl["bp_matmul"] > 0,
+              f"{cfg.name} slab serve launches: {sl}")
+        check(family["mrope_rows_distinct"], "the M-RoPE rows are equal")
+        bad = _flip(torch, np, engine, prompts[0].prompt, mrope,
+                    mrope_plain, cache_T, 0, names=("kernel", "plain"),
+                    extra=mrope_extra)
+        check(mrope == mrope_plain or bad["near_tie"],
+              f"M-RoPE generate(): kernel and plain differ beyond a "
+              f"near-tie: {bad}")
+    if cfg.family == "audio":
+        check(min(AUDIO_FRAMES) in cross_lens,
+              f"no slot held the {min(AUDIO_FRAMES)}-frame source's length: "
+              f"{sorted(cross_lens)}")
+    full = [ls for ls in step_lengths if min(ls) > 0] or step_lengths
+    shape = sorted(full, key=sum)[len(full) // 2]
+    return result, {**launches, "prefill_rows": prefill_m}, {
+        "lengths": shape,
+        "pages_per_seq": getattr(loop.cm, "blocks_per_seq", None),
+        "dims": attention_dims(cfg)}
+
+
+def phase_serve_families(torch, gpu, paged):
+    """The vision-language, hybrid and encoder-decoder families, each
+    built, served and freed in turn.  Returns ({phase: record}, {phase:
+    launches}, {phase: decode shape})."""
+    import gc
+    records, launches, shapes = {}, {}, {}
+    for name, spec in FAMILY_SERVES.items():
+        model = build_full(torch, name)
+        try:
+            ph = spec["phase"]
+            records[ph], launches[ph], shapes[ph] = phase_serve_family(
+                torch, gpu, model, paged)
         finally:
             del model
             gc.collect()
@@ -3502,10 +4044,11 @@ def _profile_serve(torch, engine, requests, n_slots, cache_T, sched,
 
 
 def _flip(torch, np, engine, prompt, serve_toks, gen_toks, cache_T, rid,
-          names=("serve", "generate"), tie=0.0):
+          names=("serve", "generate"), tie=0.0, extra=None):
     """Where two token streams first part: the position, both tokens, and
     the top-2 margin of a fresh single-request prefill of the prompt plus
-    the shared prefix.  It is a near-tie when both tokens' logits lie
+    the shared prefix (with the request's ``extra`` prefill inputs, grown
+    over the prefix: ``_grow_extra``).  It is a near-tie when both tokens' logits lie
     within 4 bf16 units in the last place (at the top logit's magnitude),
     or within ``tie`` if that is larger, of the top logit.  ``names``
     label the two streams."""
@@ -3515,7 +4058,8 @@ def _flip(torch, np, engine, prompt, serve_toks, gen_toks, cache_T, rid,
         return {"request": rid, "lengths": [len(serve_toks), len(gen_toks)],
                 "near_tie": False}
     seq = np.concatenate([prompt, np.asarray(serve_toks[:j], np.int32)])
-    logits, _ = engine.executor.prefill({"tokens": seq[None]}, cache_T)
+    logits, _ = engine.executor.prefill(
+        {"tokens": seq[None], **_grow_extra(np, extra, len(seq))}, cache_T)
     lg = logits[0].float()
     top = torch.topk(lg, 2).values.tolist()
     ulp = 2.0 ** (int(np.floor(np.log2(abs(top[0]) + 1e-30))) - 7)
@@ -3575,9 +4119,10 @@ def decode_layer_summary(torch, flush, n_slots, launches):
     """The kernels line's numbers for bp_matmul's decode GEMV: the seven
     projections of one qwen2-1.5b decoder layer at the main path's decode
     shape (M = n_slots), and beside them one rwkv6-7b layer's seven
-    projections and its lm_head, and each MoE model's five per-layer calls
-    (q, k, v, o, router), its router alone and its lm_head, at the same M,
-    each timed in this run beside the plain version and the bound."""
+    projections and its lm_head, each MoE model's five per-layer calls
+    (q, k, v, o, router), its router alone and its lm_head, and each new
+    family's repeating unit (``family_layer_kn``) and lm head, at the same
+    M, each timed in this run beside the plain version and the bound."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     ms, plain_ms, bound_ms, bound_by, err, _ = time_chain(
         torch, flush, gen, n_slots, QWEN_LAYER_KN)
@@ -3593,6 +4138,12 @@ def decode_layer_summary(torch, flush, n_slots, launches):
                                       (d, cfg.num_experts))),
                     (f"{key}_router", ((d, cfg.num_experts),)),
                     (f"{key}_lm_head", ((d, cfg.vocab_padded),))]
+    for arch in NEW_CONFIGS:
+        cfg = get_arch(arch)
+        key = arch.replace("-", "_").replace(".", "_")
+        further += [(f"{key}_{'superblock' if cfg.attn_every else 'layer'}",
+                     family_layer_kn(cfg)),
+                    (f"{key}_lm_head", ((cfg.d_model, cfg.vocab_padded),))]
     for name, kn in (("rwkv6_7b_layer", RWKV_LAYER_KN),
                      ("rwkv6_7b_lm_head", ((4096, 65536),)), *further):
         r_ms, r_plain, r_bound, r_by, r_err, _ = time_chain(
@@ -3614,11 +4165,14 @@ def decode_layer_summary(torch, flush, n_slots, launches):
             **extra}
 
 
-def prefill_layer_summary(torch, flush, qwen_m, rwkv_m, launches):
+def prefill_layer_summary(torch, flush, qwen_m, rwkv_m, launches,
+                          family_m=None):
     """The kernels line's numbers for bp_matmul's prefill tile kernel: the
     seven projections of one qwen2-1.5b decoder layer at the main path's
     most frequent prefill row count, and beside them one rwkv6-7b layer's
-    at its serve's, each timed in this run beside the plain version, the
+    at its serve's and each new family's repeating unit at its serve's
+    (``family_m``: {arch: rows}; seamless's encoder layer at its source
+    rows), each timed in this run beside the plain version, the
     bound and the same chain of ``torch._int_mm`` calls (the faster weight
     layout is ``library_ms``)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -3626,6 +4180,18 @@ def prefill_layer_summary(torch, flush, qwen_m, rwkv_m, launches):
         torch, flush, gen, qwen_m, QWEN_LAYER_KN, library=True)
     r_ms, r_plain, r_bound, r_by, r_err, r_lib = time_chain(
         torch, flush, gen, rwkv_m, RWKV_LAYER_KN, library=True)
+    from repro_torch.configs.base import get_arch
+    extra = {}
+    for arch, m in (family_m or {}).items():
+        cfg = get_arch(arch)
+        kn = family_layer_kn(cfg, encoder=True)
+        f_ms, f_plain, f_bound, f_by, f_err, f_lib = time_chain(
+            torch, flush, gen, m, kn, library=True)
+        err = max(err, f_err)
+        extra[arch.replace("-", "_").replace(".", "_") + "_unit"] = {
+            "m": m, "kn": [list(x) for x in kn], "ms": f_ms,
+            "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by,
+            "max_abs_err": f_err, "library_ms_by_layout": f_lib}
     return {"name": "bp_matmul_tile", "route": "cuda",
             "kernel": "bp_tile_kernel (mma.sync) and bp_wgmma_kernel "
                       "(prefill, M > 8)",
@@ -3643,7 +4209,8 @@ def prefill_layer_summary(torch, flush, qwen_m, rwkv_m, launches):
             "rwkv6_7b_layer": {"m": rwkv_m, "ms": r_ms, "plain_ms": r_plain,
                                "bound_ms": r_bound, "bound_by": r_by,
                                "max_abs_err": r_err,
-                               "library_ms_by_layout": r_lib}}
+                               "library_ms_by_layout": r_lib},
+            **extra}
 
 
 def paged_layer_summary(torch, flush, paged_shape, launches, moe_shapes):
@@ -3651,7 +4218,8 @@ def paged_layer_summary(torch, flush, paged_shape, launches, moe_shapes):
     call at the paged serve's decode shape (its slots, table width and the
     per-slot positions of its median full-batch step), timed in this run
     beside the plain version, the library yardstick and the bound; beside
-    it the same at each MoE serve's decode shape (``moe_shapes``)."""
+    it the same at each further paged serve's decode shape
+    (``moe_shapes``: the MoE serves' and ``serve_vlm``'s)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     lengths = paged_shape["lengths"]
     row = time_paged_case(torch, flush, gen, len(lengths), lengths,
@@ -3859,9 +4427,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         moe, moe_launches, moe_shapes = phase_serve_moe(torch, gpu, paged)
         records.append({"serve_moe": moe})
+        fam, fam_launches, fam_shapes = phase_serve_families(torch, gpu,
+                                                             paged)
+        records.extend({ph: rec} for ph, rec in fam.items())
         bp = decode_layer_summary(torch, flush, serve["n_slots"], launches)
-        tile = prefill_layer_summary(torch, flush, launches["prefill_rows"],
-                                     rwkv_launches["prefill_rows"], launches)
+        tile = prefill_layer_summary(
+            torch, flush, launches["prefill_rows"],
+            rwkv_launches["prefill_rows"], launches,
+            family_m={name: fam_launches[spec["phase"]]["prefill_rows"]
+                      for name, spec in FAMILY_SERVES.items()})
         tile["qwen2_verify_layer"] = verify_rows
         paths = {"serve": launches, "serve_paged": paged_launches,
                  "serve_spec": spec_launches,
@@ -3871,9 +4445,11 @@ def main() -> int:
                  "serve_frontdoor": door_launches,
                  "serve_rwkv": rwkv_launches,
                  "serve_moe": moe_launches["moonshot-v1-16b-a3b"],
-                 "serve_moe_granite": moe_launches["granite-moe-1b-a400m"]}
-        pa = paged_layer_summary(torch, flush, paged_shape, paged_launches,
-                                 moe_shapes)
+                 "serve_moe_granite": moe_launches["granite-moe-1b-a400m"],
+                 **fam_launches}
+        pa = paged_layer_summary(
+            torch, flush, paged_shape, paged_launches,
+            {**moe_shapes, "qwen2-vl-7b": fam_shapes["serve_vlm"]})
         for entry, key in ((bp, "bp_matmul_gemv"), (tile, "bp_matmul_tile"),
                            (pa, "paged_attention")):
             entry["launches_by_path"] = {p: c.get(key, 0)

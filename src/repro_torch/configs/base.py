@@ -1,19 +1,21 @@
 """Architecture configuration (port of ``repro/configs/base.py``).
 
-The dense causal-LM family (``qwen2-1.5b``, ``qwen2-7b``,
-``phi3-medium-14b``, ``granite-34b``), the mixture-of-experts family
-(``family="moe"``: ``granite-moe-1b-a400m``, ``moonshot-v1-16b-a3b``) and
-the RWKV-6 family (``family="ssm"``, ``rwkv6-7b``) are ported.
-``get_arch`` raises ``NotImplementedError`` for every architecture whose
-family has no port yet, instead of handing back a config the models
-cannot run.
+Every architecture of ``ARCH_IDS`` is ported: the dense causal-LM family
+(``qwen2-1.5b``, ``qwen2-7b``, ``phi3-medium-14b``, ``granite-34b``), the
+mixture-of-experts family (``family="moe"``: ``granite-moe-1b-a400m``,
+``moonshot-v1-16b-a3b``), the vision-language family (``family="vlm"``:
+``qwen2-vl-7b``, M-RoPE over precomputed patch embeddings), the RWKV-6
+family (``family="ssm"``: ``rwkv6-7b``), the Mamba-2 hybrid
+(``family="hybrid"``: ``zamba2-2.7b``) and the encoder-decoder
+(``family="audio"``: ``seamless-m4t-medium``, over precomputed frame
+embeddings).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
 
 from repro_torch.core.bp_matmul import MODES as MATMUL_MODES
 from repro_torch.kernels.bitparticle_matmul.ops import \
@@ -29,7 +31,8 @@ ARCH_IDS = (
 
 #: architectures whose config module has been ported
 PORTED_ARCHS = ("qwen2-1.5b", "qwen2-7b", "phi3-medium-14b", "granite-34b",
-                "granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "rwkv6-7b")
+                "granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "rwkv6-7b",
+                "qwen2-vl-7b", "zamba2-2.7b", "seamless-m4t-medium")
 
 
 def pad_vocab(v: int) -> int:
@@ -39,7 +42,7 @@ def pad_vocab(v: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                       # dense | moe | ssm (the families ported)
+    family: str                       # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int
     d_model: int
     num_heads: int
@@ -56,8 +59,17 @@ class ArchConfig:
     num_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    attn_every: int = 0               # zamba2: shared attn applied every N layers
     # RWKV
     rwkv_head_dim: int = 64
+    # encoder-decoder
+    encoder_layers: int = 0
+    # VLM (M-RoPE)
+    mrope_sections: Tuple[int, ...] = ()
     # numerics: bf16 | bp_exact | bp_approx
     matmul_mode: str = "bf16"
     # quantized-matmul backend (see kernels/bitparticle_matmul/ops.py)
@@ -83,13 +95,18 @@ class ArchConfig:
     def vocab_padded(self) -> int:
         return pad_vocab(self.vocab_size)
 
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.encoder_layers > 0
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""
         kw = dict(
-            num_layers=min(self.num_layers, 4),
+            num_layers=min(self.num_layers,
+                           4 if not self.attn_every else 2 * self.attn_every),
             d_model=128,
             num_heads=4,
             num_kv_heads=max(1, min(self.num_kv_heads,
@@ -102,8 +119,14 @@ class ArchConfig:
         if self.num_experts:
             kw.update(num_experts=min(self.num_experts, 8),
                       top_k=min(self.top_k, 2), d_ff=64)
+        if self.ssm_state:
+            kw.update(ssm_state=16, ssm_head_dim=32)
         if self.family == "ssm":
             kw.update(rwkv_head_dim=32, num_heads=4)
+        if self.encoder_layers:
+            kw.update(encoder_layers=2)
+        if self.mrope_sections:
+            kw.update(mrope_sections=(4, 6, 6))  # sums to head_dim/2 = 16
         return self.replace(**kw)
 
 

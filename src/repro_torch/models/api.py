@@ -12,10 +12,12 @@
 
 
 plus the slab and block-paged cache helpers the serving engine uses.  The
-dense and mixture-of-experts families (``causal_lm``) have every entry
-point; the RWKV-6 family (``ssm``, ``rwkv_model``) has the slab ones only
-and raises, as the reference does, on ragged prefill, paged caches and
-verify steps.  Other families raise ``NotImplementedError``.
+dense, mixture-of-experts and vision-language families (``causal_lm``)
+have every entry point.  The RWKV-6 (``ssm``, ``rwkv_model``), hybrid
+(``zamba_model``) and encoder-decoder (``audio``, ``encdec``) families
+have the slab ones only and raise, as the reference does, on paged caches
+and verify steps; the two recurrent ones also on ragged prefill.  The
+probed entry points take the causal-LM families only.
 """
 
 from __future__ import annotations
@@ -26,11 +28,15 @@ import torch
 
 from repro_torch.core.probe import StatsCollector, probe_supported
 from repro_torch.device import resolve_device
-from repro_torch.models import causal_lm, layers, rwkv_model
+from repro_torch.models import (causal_lm, encdec, layers, rwkv_model,
+                                zamba_model)
 
-_FAMILY_MODULES = {"dense": causal_lm, "moe": causal_lm, "ssm": rwkv_model}
+_FAMILY_MODULES = {"dense": causal_lm, "moe": causal_lm, "vlm": causal_lm,
+                   "ssm": rwkv_model, "hybrid": zamba_model, "audio": encdec}
 #: families whose decode cache is recurrent state, not position-indexed KV
 _RECURRENT_FAMILIES = ("ssm", "hybrid")
+#: families whose decode cache is position-indexed KV alone, which pages
+_PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _module(cfg):
@@ -56,6 +62,13 @@ def is_recurrent(cfg) -> bool:
     integrates every token it is given (right padding included) and has no
     sequence axis to page."""
     return cfg.family in _RECURRENT_FAMILIES
+
+
+def supports_paged(cfg) -> bool:
+    """Does this family have a block-paged decode cache?  (Position-
+    indexed KV alone: dense / moe / vlm.)"""
+    _module(cfg)
+    return cfg.family in _PAGED_FAMILIES
 
 
 def prefill(params, cfg, batch, cache_T: int, prompt_lens=None):
@@ -170,8 +183,12 @@ def cache_specs(cfg, B: int, cache_T: int
 
 
 def cache_batch_axes(cfg) -> Dict[str, int]:
-    """Slot/batch axis of every decode-cache leaf."""
-    return {name: 1 for name in cache_specs(cfg, 1, 8)}
+    """Slot/batch axis of every decode-cache leaf: the family module's
+    ``CACHE_BATCH_AXES`` (the hybrid's Mamba states stack their batch on
+    axis 2, the audio family's ``cross_len`` on axis 0), else axis 1."""
+    axes = getattr(_module(cfg), "CACHE_BATCH_AXES", None)
+    return dict(axes) if axes is not None else {
+        name: 1 for name in cache_specs(cfg, 1, 8)}
 
 
 def zeros_cache(cfg, n_slots: int, cache_T: int, device):
@@ -182,11 +199,18 @@ def zeros_cache(cfg, n_slots: int, cache_T: int, device):
 def slot_insert(cfg, pool_cache, src_cache, slot: int, src_index: int = 0):
     """Write request ``src_index`` of a prefill cache (padded to the pool's
     cache_T) into slot ``slot`` of the pooled cache, in place; returns the
-    pool."""
+    pool.  A leaf the family lists in ``SHORT_ROW_LEAVES`` (the audio
+    family's cross K/V) may be shorter than the slot along the row's axis
+    1: it fills the leading positions."""
+    short = getattr(_module(cfg), "SHORT_ROW_LEAVES", ())
     for name, ax in cache_batch_axes(cfg).items():
         pool, src = pool_cache[name], src_cache[name]
         row = src.select(ax, src_index)
         dst = pool.select(ax, slot)
+        if (name in short and row.shape[0] == dst.shape[0]
+                and row.shape[2:] == dst.shape[2:]
+                and row.shape[1] <= dst.shape[1]):
+            dst = dst.narrow(1, 0, row.shape[1])
         if row.shape != dst.shape:
             raise ValueError(f"cache leaf {name!r}: prefill row "
                              f"{tuple(row.shape)} does not fit the pool slot "
@@ -211,9 +235,10 @@ def paged_cache_specs(cfg, num_blocks: int, block_size: int
     leaf is (L, num_blocks, block_size, KH, hd), plus (L, num_blocks,
     block_size, KH) float32 scales with ``kv_cache_int8``.  Position-
     indexed KV families only: recurrent state has no sequence axis to
-    page."""
+    page, and the audio family's cross K/V is not paged (as in the
+    reference)."""
     _module(cfg)
-    if is_recurrent(cfg):
+    if not supports_paged(cfg):
         raise ValueError(f"no paged cache layout for family {cfg.family!r}")
     kv = (cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
           cfg.resolved_head_dim)

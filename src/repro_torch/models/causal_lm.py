@@ -1,5 +1,13 @@
-"""Decoder-only causal LM, dense and mixture-of-experts families (port of
-``repro/models/causal_lm.py``).
+"""Decoder-only causal LM: the dense, mixture-of-experts and
+vision-language families (port of ``repro/models/causal_lm.py``).
+
+The vision-language family (``vlm``, qwen2-vl-7b) is the dense model with
+two additions: prefill splices precomputed patch embeddings
+(``vision_embeds``, cast to bf16) into the token embeddings where
+``vision_mask`` is set, and rotary angles are M-RoPE over (3, B, S)
+positions (``layers.mrope_angles``).  A prefill without ``positions`` gets
+the plain 0..S-1 on all three rows, and the decode and verify steps
+continue every row at ``cache_len``, as the reference does.
 
 Layer parameters are stacked on a leading L axis exactly as the reference's
 ``lax.scan`` layout; the forward pass is a Python loop over that axis.  The
@@ -22,7 +30,7 @@ from repro_torch.models import attention, layers, moe
 def init(gen: torch.Generator, cfg, device=None):
     """Random-init parameters from ``gen`` (same structure as the
     reference's pytree: every layer leaf has a leading L axis)."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
     L = cfg.num_layers
     # drawn in this order: the embedding, then the layers, then the head
@@ -51,16 +59,37 @@ def init(gen: torch.Generator, cfg, device=None):
 
 def layer_params(params, l: int):
     """Layer ``l``'s slice of the stacked layer tree (views, no copies)."""
-    def take(node):
-        if isinstance(node, dict):
-            return {k: take(v) for k, v in node.items()}
-        return node[l]
-    return take(params["layers"])
+    return layers.stack_slice(params["layers"], l)
 
 
 def _angles(cfg, positions: torch.Tensor):
-    return layers.rope_angles(positions, cfg.resolved_head_dim,
-                              cfg.rope_theta)
+    """positions: (B, S), or (3, B, S) for M-RoPE."""
+    hd = cfg.resolved_head_dim
+    if cfg.mrope_sections:
+        if positions.ndim != 3:
+            raise ValueError(f"M-RoPE takes (3, B, S) positions, got "
+                             f"{tuple(positions.shape)}")
+        return layers.mrope_angles(positions, hd, cfg.rope_theta,
+                                   cfg.mrope_sections)
+    return layers.rope_angles(positions, hd, cfg.rope_theta)
+
+
+def _embed_inputs(params, cfg, batch):
+    """(x (B, S, D), positions): the token embeddings with the vision
+    splice, and the batch's positions or the default 0..S-1 (on three rows
+    for M-RoPE)."""
+    tokens = batch["tokens"]
+    x = layers.embed(params["embed"], tokens)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        x = torch.where(batch["vision_mask"][..., None],
+                        batch["vision_embeds"].to(x.dtype), x)
+    B, S = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        if cfg.mrope_sections:
+            positions = positions[None].expand(3, B, S)
+    return x, positions
 
 
 def _ffn(lp, h, cfg, mode, probe=None):
@@ -107,10 +136,7 @@ def forward(params, cfg, batch, *, return_cache: bool = False,
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
-    x = layers.embed(params["embed"], tokens)
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, device=dev)[None].expand(B, S)
+    x, positions = _embed_inputs(params, cfg, batch)
     cos, sin = _angles(cfg, positions)
     cache = None
     if return_cache:
@@ -172,6 +198,8 @@ def _decode_common(params, cfg, batch, *, write_fn, attend_fn, probe=None):
     dev = tokens.device
     x = layers.embed(params["embed"], tokens)
     pos = attention.decode_positions(batch["cache_len"], B, S, device=dev)
+    if cfg.mrope_sections:
+        pos = pos[None].expand(3, B, S)
     cos, sin = _angles(cfg, pos)
     hd = cfg.resolved_head_dim
     int8kv = cfg.kv_cache_int8

@@ -32,6 +32,15 @@ def truncated_normal(gen: torch.Generator, shape: Sequence[int],
     return t.to(dtype)
 
 
+def stack_slice(tree, *idx):
+    """Slice ``idx`` of every leaf of a stacked parameter subtree (views,
+    no copies): layer ``l`` of a scan-stacked tree is ``stack_slice(tree,
+    l)``."""
+    if isinstance(tree, dict):
+        return {k: stack_slice(v, *idx) for k, v in tree.items()}
+    return tree[idx]
+
+
 # --- norms -----------------------------------------------------------------
 
 def init_rmsnorm(d: int, lead=(), device=None):
@@ -143,6 +152,25 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
                                  device=positions.device), -ar / half)
     ang = positions.to(torch.float32)[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions3: torch.Tensor, head_dim: int, theta: float,
+                 sections: Sequence[int]):
+    """Qwen2-VL M-RoPE: positions3 (3, B, S); frequency band h takes its
+    angles from the (t, h, w) position row of its section (the reference's
+    one-hot contraction over the rows, which picks one term exactly).
+    Returns cos/sin (B, S, head_dim//2) float32."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim/2 = {half}")
+    cos, sin = rope_angles(positions3, head_dim, theta)   # (3, B, S, half)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=positions3.device),
+        torch.as_tensor(list(sections), device=positions3.device))
+    band = torch.arange(half, device=positions3.device)
+    return cos[sec_id, ..., band].movedim(0, -1), \
+        sin[sec_id, ..., band].movedim(0, -1)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,

@@ -250,17 +250,27 @@ class PagedCacheManager(BaseCacheManager):
 
     Supported families: those whose decode cache is purely position-indexed
     KV (dense / moe / vlm).  Recurrent families (ssm / hybrid) have O(1)
-    state per slot — paging buys nothing there; use the slab backend.
+    state per slot — paging buys nothing there; use the slab backend.  The
+    audio family's cross K/V is not paged either.
+
+    Prefix sharing keys on tokens alone, so a request whose prefill has
+    inputs beside its tokens (per-request ``extras``: a VLM request's
+    image) must neither adopt nor register trie blocks: its K/V at a
+    position depends on more than the tokens up to it.  The serve loop
+    lists such requests in ``unshared`` (request ids; ``admissible_prefix``
+    counts no hit for them) and inserts them with ``share=False``.  The
+    reference keys them on tokens too, and a VLM request there adopts the
+    blocks of another request with the same tokens and another image.
     """
 
     def __init__(self, cfg, n_slots: int, cache_T: int, *,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  executor, telemetry=None, faults=None):
         from repro_torch.serving.telemetry import NULL_TELEMETRY
-        if api.is_recurrent(cfg):
+        if not api.supports_paged(cfg):
             raise ValueError(
                 f"cache_backend='paged' supports position-indexed KV "
-                f"families only, not {cfg.family!r}; use 'slab'")
+                f"families (dense/moe/vlm), not {cfg.family!r}; use 'slab'")
         self.telemetry = telemetry if telemetry is not None else NULL_TELEMETRY
         self.block_size = block_size
         # blocks per sequence: logical capacity rounded up to whole blocks
@@ -280,6 +290,8 @@ class PagedCacheManager(BaseCacheManager):
                               np.int32)
         self._n_blocks_of = np.zeros(n_slots, np.int32)   # live table entries
         self.n_preemptions = 0
+        #: request ids that neither match nor register trie blocks
+        self.unshared: frozenset = frozenset()
 
     # -- capacity / admission budget ---------------------------------------
 
@@ -322,7 +334,8 @@ class PagedCacheManager(BaseCacheManager):
             if slots == 0:
                 break
             toks = req.prompt.tolist()
-            hit_ids, partial = self.pool.match_prefix(toks, peek=True)
+            hit_ids, partial = (([], None) if req.request_id in self.unshared
+                                else self.pool.match_prefix(toks, peek=True))
             full, rem = divmod(len(toks), bs)
             # a partial hit ADOPTS a shared tail block, so the remainder
             # costs no fresh block at insert time (CoW pays later)
@@ -353,14 +366,16 @@ class PagedCacheManager(BaseCacheManager):
     # -- prefill insert with prefix sharing --------------------------------
 
     def insert(self, slot: int, src_cache, length: int, src_index: int = 0,
-               tokens: Optional[Sequence[int]] = None):
+               tokens: Optional[Sequence[int]] = None, share: bool = True):
         """Install request ``src_index`` of a prefill cache into ``slot``.
 
         ``tokens`` (the prompt) drives prefix sharing: full blocks already in
         the trie are adopted by reference (never re-written — their content
         is identical since K/V at position p depends only on tokens <= p);
         a partial-suffix hit adopts a shared block copy-on-write.  Freshly
-        written full blocks are registered for future requests.
+        written full blocks are registered for future requests.  With
+        ``share=False`` (a prefill with inputs beside its tokens) every
+        block is private: no hit is adopted and none is registered.
         Raises :class:`NoFreeBlocks` when the pool cannot cover the miss
         suffix — the engine preempts a request and retries.
         """
@@ -370,7 +385,8 @@ class PagedCacheManager(BaseCacheManager):
             raise ValueError("paged insert needs the prompt tokens")
         toks = [int(t) for t in tokens][:length]
         bs = self.block_size
-        full_ids, partial = self.pool.match_prefix(toks)
+        full_ids, partial = (self.pool.match_prefix(toks) if share
+                             else ([], None))
         n_counted_hits = len(full_ids) + (1 if partial is not None else 0)
         n_hit = len(full_ids)
         for bid in full_ids:
@@ -422,7 +438,7 @@ class PagedCacheManager(BaseCacheManager):
         # register freshly written FULL blocks; on a same-content collision
         # (two identical prompts in one prefill group) swap to the canonical
         # block so the copies share
-        for j in range(skip, n_total):
+        for j in range(skip, n_total if share else skip):
             if (j + 1) * bs > length:
                 break   # trailing partial block: content not yet final
             key, canon = self.pool.register(keys[j], tuple(

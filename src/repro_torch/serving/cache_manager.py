@@ -107,10 +107,11 @@ class CacheManager(BaseCacheManager):
         return prompt_len + max_new_tokens <= self.cache_T
 
     def insert(self, slot: int, src_cache, length: int, src_index: int = 0,
-               tokens=None):
+               tokens=None, share: bool = True):
         """Install request ``src_index`` of a prefill cache (padded to this
         pool's cache_T) into ``slot`` and set its sequence position.
-        ``tokens`` is accepted for interface parity and ignored."""
+        ``tokens`` and ``share`` (the paged store's prefix sharing) are
+        accepted for interface parity and ignored."""
         if not self._occupied[slot]:
             raise ValueError(f"slot {slot} must be alloc()ed before insert")
         with self.telemetry.span("slot_insert", slot=slot, length=length):

@@ -1,7 +1,8 @@
 """Serving engine: static batched generation + quasi-sync continuous batching
-(port of ``repro/serving/engine.py``, slab and paged slices), for the dense
-and mixture-of-experts families (slab or paged store) and the RWKV-6
-family (slab store: its recurrent state has no sequence axis to page).
+(port of ``repro/serving/engine.py``, slab and paged slices), for the dense,
+mixture-of-experts and vision-language families (slab or paged store) and
+the RWKV-6, hybrid and encoder-decoder families (slab store: recurrent
+state has no sequence axis to page, and the cross K/V is not paged).
 
   * ``generate(batch)`` — the static path: one prefill, then the whole batch
     decodes in lock-step, ``decode_chunk`` tokens per executor call, with
@@ -13,6 +14,12 @@ family (slab store: its recurrent state has no sequence axis to page).
     (``"paged"``: blocks on demand, prefix sharing, copy-on-write, and
     preempt-and-replay when the pool runs dry).  Greedy outputs are
     token-identical to the static path and across the two stores.
+  * per-request ``extras`` (``serve(..., extras={request_id: {...}})``):
+    prefill inputs beside the tokens, stacked on a leading batch axis per
+    admission group: the VLM family's ``vision_embeds`` and
+    ``vision_mask``, the audio family's ``src_embeds``.  Such groups are
+    exact-length, and on the paged store such requests keep their blocks
+    out of the prefix trie (their K/V depends on more than the tokens).
   * speculative decoding (``draft="prompt_lookup"`` or ``"model"``) and
     chunked prefill (``prefill_chunk``) ride the multi-token verify step
     (``ServeLoop.decode_once_spec``), attention-KV families only, greedy
@@ -296,6 +303,7 @@ class ServeLoop:
     def __init__(self, engine: "ServingEngine", requests: Sequence[Request],
                  *, n_slots: int = 8, cache_T: Optional[int] = None,
                  sched_cfg: Optional[SchedulerConfig] = None,
+                 extras: Optional[Dict[int, dict]] = None,
                  num_blocks: Optional[int] = None):
         self.engine = engine
         self.executor: SingleDeviceExecutor = engine.executor
@@ -360,6 +368,14 @@ class ServeLoop:
                     "chunked prefill is greedy-only (temperature == 0): "
                     "the final chunk's first token comes from the verify "
                     "step's fused argmax")
+            if extras:
+                raise ValueError(
+                    "chunked prefill does not compose with per-request "
+                    "extra prefill inputs (extras ride the one-shot "
+                    "prefill only)")
+        # request id -> extra prefill inputs (replayed prefills after a
+        # preemption or a recovery carry them again)
+        self.extras: Dict[int, dict] = dict(extras or {})
         # slot -> next unfed prompt position of a request mid-chunked-
         # prefill (cleared on preemption and eviction: replay restarts the
         # chunks)
@@ -374,11 +390,12 @@ class ServeLoop:
         self.cache_T = self.cm.prefill_T if self.paged else cache_T
         sched_cfg = sched_cfg if sched_cfg is not None else SchedulerConfig()
         if sched_cfg.prefill_bucketing is None:
-            # pow2 buckets need right-padding-safe prefill (attention KV);
-            # a recurrent state would integrate the padding tokens
+            # pow2 buckets need right-padding-safe prefill: attention KV
+            # without per-request extra inputs (a recurrent state would
+            # integrate the padding tokens, and extras are not padded)
+            ragged_ok = not (api.is_recurrent(engine.cfg) or self.extras)
             sched_cfg = dataclasses.replace(
-                sched_cfg, prefill_bucketing=(
-                    "exact" if api.is_recurrent(engine.cfg) else "pow2"))
+                sched_cfg, prefill_bucketing="pow2" if ragged_ok else "exact")
         self.rq = RequestQueue(max_waiting=sched_cfg.max_waiting,
                                on_reject=self._on_reject)
         self.sched = QuasiSyncScheduler(self.rq, self.cm, sched_cfg,
@@ -436,13 +453,19 @@ class ServeLoop:
                    probe_every=int(self.probe.probe_every))
 
     def _build_cm(self):
-        return make_cache_manager(self.engine.cfg, self.n_slots,
-                                  self._cache_T_arg,
-                                  backend=self.serve_cfg.cache_backend,
-                                  block_size=self.serve_cfg.block_size,
-                                  num_blocks=self._num_blocks,
-                                  executor=self.executor,
-                                  telemetry=self.tel, faults=self.faults)
+        cm = make_cache_manager(self.engine.cfg, self.n_slots,
+                                self._cache_T_arg,
+                                backend=self.serve_cfg.cache_backend,
+                                block_size=self.serve_cfg.block_size,
+                                num_blocks=self._num_blocks,
+                                executor=self.executor,
+                                telemetry=self.tel, faults=self.faults)
+        if isinstance(cm, PagedCacheManager):
+            # prefix sharing keys on tokens: a request with extra prefill
+            # inputs keeps its blocks out of the trie
+            cm.unshared = frozenset(rid for rid, ex in self.extras.items()
+                                    if ex)
+        return cm
 
     def _bind_step_fns(self):
         """(Re-)fetch the step functions from the executor: at construction
@@ -782,11 +805,12 @@ class ServeLoop:
         is the prefilled prefix being installed (default the whole prompt;
         a chunked admission installs its first chunk only)."""
         length = req.prompt_len if length is None else length
+        share = not self.extras.get(req.request_id)
         while True:
             try:
                 self.cm.insert(slot, cache, length,
                                src_index=src_index,
-                               tokens=req.prompt[:length])
+                               tokens=req.prompt[:length], share=share)
                 return
             except NoFreeBlocks as e:
                 # the inserting request holds no slot entry in `active`
@@ -825,12 +849,13 @@ class ServeLoop:
         toks = np.zeros((len(group), pad_to), np.int32)
         for j, r in enumerate(group):
             toks[j, :eff[j]] = r.prompt[:eff[j]]
+        batch = {"tokens": toks, **self.group_extras(group)}
         probed = self.probe.enabled   # every admission prefill is sampled
         t0 = time.perf_counter()
 
         def dispatch():
             out = self.executor.prefill(
-                {"tokens": toks}, self.cache_T,
+                batch, self.cache_T,
                 prompt_lens=lens if self.ragged else None,
                 **({"probed": True} if probed else {}))
             _sync(self.executor.device)
@@ -898,6 +923,29 @@ class ServeLoop:
         if probe_stats is not None:
             self._emit_hw(probe_stats, "prefill",
                           n_tokens=int(lens.sum()) + n_emitted)
+
+    def group_extras(self, group: List[Request]) -> dict:
+        """The admission group's extra prefill inputs (host arrays), each
+        stacked on a new leading batch axis; the executor puts them on the
+        device and counts their bytes as h2d traffic."""
+        if not self.extras:
+            return {}
+        per = [self.extras.get(r.request_id) or {} for r in group]
+        keys = sorted({k for ex in per for k in ex})
+        if "positions" in keys:
+            raise NotImplementedError(
+                "M-RoPE 'positions' is (3, B, S): extras are stacked on a "
+                "leading batch axis and cannot express it")
+        out = {}
+        for k in keys:
+            missing = [r.request_id for r, ex in zip(group, per)
+                       if k not in ex]
+            if missing:
+                raise ValueError(
+                    f"prefill group mixes requests with and without extra "
+                    f"input {k!r} (missing for {missing})")
+            out[k] = np.stack([np.asarray(ex[k]) for ex in per])
+        return out
 
     def _append_token(self, req: Request, tok: int, wall: float):
         """Record one emitted token with its wall-clock stamp.  Replayed
@@ -1580,7 +1628,10 @@ class ServingEngine:
     def generate(self, batch: dict, seed: int = 0, *,
                  max_new_tokens: Optional[int] = None,
                  cache_T: Optional[int] = None) -> GenerationResult:
-        """batch: {"tokens": (B, S_prompt)} (host array or tensor)."""
+        """batch: {"tokens": (B, S_prompt) (host array or tensor)[,
+        "vision_embeds", "vision_mask", "positions" (3, B, S),
+        "src_embeds" (host arrays)]}; the whole batch goes to the
+        prefill."""
         prompt = np.asarray(batch["tokens"].cpu()
                             if isinstance(batch["tokens"], torch.Tensor)
                             else batch["tokens"])
@@ -1597,7 +1648,8 @@ class ServingEngine:
         dev = self.device
 
         t0 = time.perf_counter()
-        logits, cache = self.executor.prefill({"tokens": prompt}, cache_T)
+        logits, cache = self.executor.prefill(dict(batch, tokens=prompt),
+                                              cache_T)
         _sync(dev)
         t1 = time.perf_counter()
 
@@ -1633,23 +1685,30 @@ class ServingEngine:
     def make_loop(self, requests: Sequence[Request], *, n_slots: int = 8,
                   cache_T: Optional[int] = None,
                   sched_cfg: Optional[SchedulerConfig] = None,
+                  extras: Optional[Dict[int, dict]] = None,
                   num_blocks: Optional[int] = None) -> ServeLoop:
         """Build (without running) the orchestration loop of one serve."""
         return ServeLoop(self, requests, n_slots=n_slots, cache_T=cache_T,
-                         sched_cfg=sched_cfg, num_blocks=num_blocks)
+                         sched_cfg=sched_cfg, extras=extras,
+                         num_blocks=num_blocks)
 
     def serve(self, requests: Sequence[Request], *, n_slots: int = 8,
               cache_T: Optional[int] = None,
               sched_cfg: Optional[SchedulerConfig] = None,
+              extras: Optional[Dict[int, dict]] = None,
               num_blocks: Optional[int] = None) -> ServeReport:
         """Continuously-batched generation over a request stream;
         ``arrival_time`` is on the decode-step clock, so runs are
-        deterministic and replayable.  On the paged store ``num_blocks``
-        caps the pool (default: the slab's footprint, plus the trash
-        block); when it runs dry the newest admission is preempted and
-        replayed token-exactly."""
+        deterministic and replayable.  ``extras`` maps request_id -> extra
+        prefill inputs (``vision_embeds`` and ``vision_mask`` for the VLM
+        family, ``src_embeds`` for the audio family), stacked on a new
+        leading batch axis per admission group; M-RoPE ``positions``
+        ((3, B, S)) cannot ride there and raise ``NotImplementedError``.
+        On the paged store ``num_blocks`` caps the pool (default: the
+        slab's footprint, plus the trash block); when it runs dry the
+        newest admission is preempted and replayed token-exactly."""
         return self.make_loop(requests, n_slots=n_slots, cache_T=cache_T,
-                              sched_cfg=sched_cfg,
+                              sched_cfg=sched_cfg, extras=extras,
                               num_blocks=num_blocks).run()
 
     # ------------------------------------------------------------------

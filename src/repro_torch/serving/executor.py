@@ -52,6 +52,11 @@ from repro_torch.serving.telemetry import NULL_TELEMETRY
 
 _SEED_MIX = 1_000_003
 
+#: device dtypes of a prefill's inputs (the rest keep theirs: the models
+#: cast embeddings to bf16 themselves, as the reference does)
+_INPUT_DTYPES = {"tokens": torch.long, "positions": torch.long,
+                 "vision_mask": torch.bool}
+
 
 def sample_seed(base: int, n: int) -> int:
     """Seed of the ``n``-th sampled token of a request whose base seed is
@@ -162,10 +167,12 @@ class SingleDeviceExecutor:
                 probed: bool = False):
         """(last-position logits (B, V), prefill cache padded to cache_T).
         ``prompt_lens`` selects the ragged right-padded variant.
-        ``probed=True`` also returns the activation stats."""
+        ``probed=True`` also returns the activation stats.  Host arrays
+        beside ``tokens`` (``positions``, ``vision_embeds``,
+        ``vision_mask``, ``src_embeds``) go to the device with it."""
         self._require_params()
         self.faults.check("prefill")
-        b = {"tokens": self.put(batch["tokens"], torch.long)}
+        b = {k: self.put(v, _INPUT_DTYPES.get(k)) for k, v in batch.items()}
         lens = None if prompt_lens is None else self.put(prompt_lens,
                                                          torch.long)
         entry = api.prefill_probed if probed else api.prefill

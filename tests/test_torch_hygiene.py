@@ -87,7 +87,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.serving.frontdoor.replica",
                  "repro_torch.serving.frontdoor.router",
                  "repro_torch.serving.frontdoor.server",
-                 "repro_torch.serving.frontdoor.client"):
+                 "repro_torch.serving.frontdoor.client",
+                 "repro_torch.models.mamba2",
+                 "repro_torch.models.zamba_model",
+                 "repro_torch.models.encdec",
+                 "repro_torch.configs.qwen2_vl_7b",
+                 "repro_torch.configs.zamba2_2_7b",
+                 "repro_torch.configs.seamless_m4t_medium"):
         assert name in walked, name
 
 
@@ -211,12 +217,17 @@ def test_paged_attention_kernel_backend_refuses(case):
 
 
 def test_unported_families_and_sinks_raise(tmp_path):
-    """Unported families raise; the telemetry sinks, ported now, write a
-    metrics file that parses back into the served records."""
+    """Every architecture of ``ARCH_IDS`` is ported and returned; a family
+    outside them raises; the telemetry sinks write a metrics file that
+    parses back into the served records."""
+    from repro_torch.configs.base import ARCH_IDS, PORTED_ARCHS
+    assert set(PORTED_ARCHS) == set(ARCH_IDS)
+    for name in ARCH_IDS:
+        assert get_arch(name).name == name
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_arch("retnet-7b")
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.init(_small_cfg(family="hybrid"), device="cpu")
+        api.init(_small_cfg(family="retnet"), device="cpu")
     cfg = _small_cfg(matmul_mode="bp_exact")
     path = tmp_path / "metrics.jsonl"
     with serving.Telemetry(metrics_path=str(path)) as tel:

@@ -1,6 +1,7 @@
 """Shared plumbing of the serving parity tests that hold the PyTorch port
 against the JAX package (``test_torch_speculative.py``,
-``test_torch_chunked_prefill.py``).
+``test_torch_chunked_prefill.py``, ``test_torch_vlm.py``,
+``test_torch_hybrid.py``, ``test_torch_encdec.py``).
 
 The reference engine runs jitted in a subprocess started with
 ``XLA_FLAGS=--xla_allow_excess_precision=false``, so that every bf16
@@ -49,7 +50,8 @@ def save_reference(out_dir, summaries: dict, params) -> None:
 def run_reference(module: str, out_dir: pathlib.Path) -> dict:
     """Run ``module.write_reference(out_dir)`` in a subprocess and load what
     it wrote: the summaries, with ``params`` the port's parameter tree (on
-    the CPU, each leaf in the reference's dtype)."""
+    the CPU, each leaf in the reference's dtype) and, where the subprocess
+    wrote them (:func:`save_arrays`), ``arrays`` its named float32 arrays."""
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
                           + " --xla_allow_excess_precision=false").strip(),
@@ -78,7 +80,20 @@ def run_reference(module: str, out_dir: pathlib.Path) -> dict:
         return node.to(getattr(torch, ref["dtypes"][path]))
 
     ref["params"] = cast(params_from_numpy(tree, device="cpu"))
+    arrays = out_dir / "arrays.npz"
+    if arrays.exists():
+        with np.load(arrays) as z:
+            ref["arrays"] = {k: z[k] for k in z.files}
     return ref
+
+
+def save_arrays(out_dir, **arrays) -> None:
+    """Write named arrays of the reference (bf16 ones widened to float32,
+    exactly) for :func:`run_reference` to hand back."""
+    np.savez(pathlib.Path(out_dir) / "arrays.npz",
+             **{k: np.asarray(v).astype(np.float32)
+                if np.asarray(v).dtype.name == "bfloat16" else np.asarray(v)
+                for k, v in arrays.items()})
 
 
 def summary(report, fields) -> dict:
