@@ -38,6 +38,15 @@ are missing.  Phases, one JSON line each:
                a split, on pages shared across sequences, at the further
                configs' decode shapes (G 1 at D 128, G 2 at D 64, G 7, G 4
                and G 48 on one kv head), plus a length-0 all-trash case;
+               its state variant K2s (acc, m, l in float32) within 1e-5 in
+               float32 on the ragged shapes, within one bf16 unit on acc / l
+               at qwen2-1.5b's decode shape and at G 1, 2 (D 64), 7 and 4,
+               exactly neutral (0, -0.7 FLT_MAX, 0) on negative lengths and
+               all-trash tables, and merged over 2 and 4 shards of the card
+               against the unsharded kernel within 1e-5 in float32; the
+               sharded matmul bit-exact against the unsharded one (column
+               split, split-K, replicated) at the reference's mesh shapes
+               and qwen2-1.5b's gate/up at M 4 and 128;
                the chunked WKV6 recurrence (its two kernels, state chain
                and chunk outputs) on the reference's kernel-test shapes
                (float32 within 2e-4, bf16 r/k/v within 3e-2), at rwkv6-7b's
@@ -155,6 +164,18 @@ are missing.  Phases, one JSON line each:
                the door's added latency per token (client receipt against
                the engine's commit stamp), and each replica's step p50
                beside ``serve_paged``'s;
+  serve_mesh   mesh serving on the one card, on the same qwen2 weights:
+               ``serve_paged``'s workload and pool on meshes (1, 2) and
+               (2, 2) and ``serve``'s (slab, int8 KV) on (1, 2), every shard
+               on cuda:0 (``MeshExecutor``: one controller, the weights cut
+               per shard at placement, the paged table widened to a
+               multiple of 4 blocks so the KV splits).  K1 launches once per
+               shard and K2s once per model shard per layer per paged
+               decode step, exactly as the step stream predicts, K2 never;
+               streams equal ``serve_paged``'s and ``serve``'s except
+               near-tie flips, each reported.  Reports per mesh step
+               p50/p90, decode tokens/s beside the single-device serve's,
+               K1 launches per shard and peak memory;
   serve_rwkv   the third main path, after the qwen2 weights are freed:
                full-width, full-depth rwkv6-7b (random weights from a seed)
                in bp_exact on the slab store, greedy; prompts of 64-256
@@ -176,10 +197,10 @@ are missing.  Phases, one JSON line each:
                strict: layer 0's WKV state after every kernel-route
                prefill of the serve within 3e-2 of the plain serve's;
   serve_moe    the fourth main path, the MoE family, after the rwkv
-               weights are freed, one JSON line per model: full-width,
-               full-depth moonshot-v1-16b-a3b (48 layers, 64 experts of
-               d_ff 1408, top 6; random weights from a seed, the expert
-               stacks drawn a layer at a time into bf16, ~53 GB) on
+               weights are freed, one JSON line per model: full-width
+               moonshot-v1-16b-a3b cut to 24 of its 48 layers (64 experts
+               of d_ff 1408, top 6; random weights from a seed, the expert
+               stacks drawn a layer at a time into bf16, ~27 GB) on
                ``serve_paged``'s workload, block size and 36-block pool,
                then four requests of full-width granite-moe-1b-a400m (K2 at
                head dim 64, a 32-block pool), both in bp_exact with a bf16
@@ -333,8 +354,10 @@ QWEN_ATTN = {"H": 12, "KH": 2, "D": 128, "bs": 16}
 #: request generator draws alike, so its 36 blocks preempt as qwen2's do
 #: (4 times in a CPU rehearsal); granite-moe-1b-a400m's 4 requests hold up
 #: to 39 blocks unbounded, and 32 preempt once in the rehearsal
+#: moonshot runs 24 of its 48 layers (``layers``): the whole script must
+#: finish within its time limit, and this phase took the largest share
 MOE_SERVES = {"moonshot-v1-16b-a3b": {"n_requests": 8, "num_blocks": 36,
-                                      "seed": 1},
+                                      "seed": 1, "layers": 24},
               "granite-moe-1b-a400m": {"n_requests": 4, "num_blocks": 32,
                                        "seed": 5}}
 #: paged serve: pages in the pool, the trash page included.  Its requests
@@ -367,11 +390,15 @@ def check(cond: bool, msg: str) -> None:
 #: perf_counter() when main() started: each phase line carries the
 #: seconds since then
 _START = [time.perf_counter()]
+#: each phase's last line's seconds since then, by phase (the details
+#: file keeps them: where the script's time limit goes)
+_ELAPSED = {}
 
 
 def emit(obj: dict) -> None:
     if "phase" in obj:
         obj = {**obj, "elapsed_s": time.perf_counter() - _START[0]}
+        _ELAPSED[obj["phase"]] = obj["elapsed_s"]
     print(json.dumps(obj), flush=True)
 
 
@@ -454,16 +481,20 @@ def matmul_bound(m: int, k: int, n: int, approx: bool):
 
 
 def attention_bound(lengths, n_heads: int, kv_heads: int, head_dim: int,
-                    block_size: int, pages_per_seq: int, esize: int = 2):
+                    block_size: int, pages_per_seq: int, esize: int = 2,
+                    state: bool = False):
     """(bound_ms, bound_by) of paged decode attention: the larger of bytes
     over HBM rate (the valid K and V rows of every sequence, q, the output,
     the tables and lengths, each once) and its flops (q.k and p.v, two per
-    multiply-add) over the bf16 tensor-core rate."""
+    multiply-add) over the bf16 tensor-core rate.  ``state``: the output
+    is K2s's float32 (acc, m, l)."""
     B = len(lengths)
-    tokens = sum(min(int(n) + 1, pages_per_seq * block_size)
+    tokens = sum(min(max(int(n) + 1, 0), pages_per_seq * block_size)
                  for n in lengths)
+    out_bytes = (B * n_heads * (4 * head_dim + 8) if state
+                 else B * n_heads * head_dim * esize)
     nbytes = (2 * tokens * kv_heads * head_dim * esize
-              + 2 * B * n_heads * head_dim * esize
+              + B * n_heads * head_dim * esize + out_bytes
               + 4 * B * pages_per_seq + 4 * B)
     ops = 4 * tokens * n_heads * head_dim
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -644,8 +675,9 @@ def _rand_case(torch, gen, m, k, n, low=-127):
 
 
 def phase_kernels(torch, gpu):
-    entries = [check_bp_matmul(torch), check_paged_attention(torch),
-               check_wkv6(torch)]
+    entries = [check_bp_matmul(torch), check_bp_matmul_sharded(torch),
+               check_paged_attention(torch),
+               check_paged_attention_state(torch), check_wkv6(torch)]
     emit({"phase": "kernels", "gpu": gpu, "kernels": entries})
     for e in entries:
         check(not e["failures"], f"{e['name']} disagrees with its plain "
@@ -834,6 +866,188 @@ def check_paged_attention(torch):
             "tolerance": "float32: atol = rtol = 1e-5; bfloat16: one bf16 "
                          "unit in the last place (at magnitudes >= 2^-8)",
             "max_abs_err": max_err,
+            "parity": "ok" if not failures else "FAILED",
+            "failures": failures[:10]}
+
+
+def cuda_mesh(torch, data, model):
+    """A ``(data, model)`` mesh with every shard on the card (one card:
+    the shards launch one after another on its default stream)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    return make_local_mesh(data, model,
+                           devices=[torch.device("cuda", 0)] * (data * model))
+
+
+def _state_err(torch, got, want):
+    """(max |acc/l| difference, max |m| difference, whether the kernel's
+    state is finite) of K2s against its plain version.  Where l is 0 (no
+    valid position) both ratios are taken as 0."""
+    def ratio(acc, l):
+        return torch.where(l > 0, acc / torch.where(l > 0, l, 1.0), 0.0)
+
+    r_got, r_want = ratio(got[0], got[2]), ratio(want[0], want[2])
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    return r_got, r_want, (got[1] - want[1]).abs().max().item(), finite
+
+
+def check_paged_attention_state(torch):
+    """K2s, the paged-attention kernel's state variant, against its plain
+    version: float32 on the reference's ragged shapes (acc, m and l each
+    within atol = rtol = 1e-5), bf16 at qwen2-1.5b's decode shape and at
+    the further configs' groupings (G 1, 2 at D 64, 7, 4; acc / l within
+    one bf16 unit, m within 1e-4), rows with negative lengths and all-trash
+    tables exactly neutral (acc 0, m -0.7 FLT_MAX, l 0) on one and on
+    several splits, and the split-KV merge over 2 and 4 shards of one card
+    against the unsharded K2 within 1e-5 in float32, far shards included."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.paged_attention.ref import NEG_INF
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    H, KH, D, bs = (QWEN_ATTN[k] for k in ("H", "KH", "D", "bs"))
+    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32).item()
+    failures, max_err, n_cases = [], 0.0, 0
+
+    def state(args, backend):
+        return pa_ops.paged_attention_state(*args, backend=backend)
+
+    # float32 on the ragged shapes
+    for B, h, kh, d, nb, b_s, pps, t_hi in PA_RAGGED:
+        lengths = torch.randint(0, t_hi, (B,), generator=gen,
+                                device="cuda").tolist()
+        args = paged_case(torch, gen, B, h, kh, d, nb, b_s, pps, lengths,
+                          torch.float32)
+        got, want = state(args, "kernel"), state(args, "plain")
+        torch.cuda.synchronize()
+        n_cases += 1
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        max_err = max(max_err, err)
+        if not all(torch.allclose(g, w, atol=1e-5, rtol=1e-5)
+                   for g, w in zip(got, want)):
+            failures.append({"case": f"ragged B{B} H{h} KH{kh} D{d}",
+                             "max_abs_err": err})
+    # bf16 at the models' decode groupings
+    pps = 32
+    dims = [("qwen2-1.5b", (H, KH, D))] + [
+        (name, attention_dims(get_arch(name)))
+        for name in ("moonshot-v1-16b-a3b", "granite-moe-1b-a400m",
+                     "qwen2-7b", "phi3-medium-14b")]
+    for name, (h, kh, d) in dims:
+        lengths = torch.randint(0, bs * pps, (4,), generator=gen,
+                                device="cuda").tolist()
+        args = paged_case(torch, gen, 4, h, kh, d, 4 * pps + 1, bs, pps,
+                          lengths, torch.bfloat16)
+        got, want = state(args, "kernel"), state(args, "plain")
+        torch.cuda.synchronize()
+        n_cases += 1
+        r_got, r_want, m_err, finite = _state_err(torch, got, want)
+        err = (r_got - r_want).abs()
+        max_err = max(max_err, err.max().item())
+        if not (finite and bool((err <= bf16_ulp(torch, r_want)).all())
+                and m_err <= 1e-4):
+            failures.append({"case": f"{name} H{h} KH{kh} D{d} bf16",
+                             "max_abs_err": err.max().item(),
+                             "m_err": m_err})
+    # exactly neutral rows: negative lengths (a far shard) and all-trash
+    # tables, on a 4-page table (one split) and a 512-page one (several)
+    for dtype in (torch.float32, torch.bfloat16):
+        for P in (4, 512):
+            lens = [-1, -bs * P, -7, 5]
+            q, kp, vp, tables, _ = paged_case(torch, gen, 4, H, KH, D,
+                                              4 * P + 1, bs, P, [5] * 4,
+                                              dtype)
+            tables[1:3] = 0
+            lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = state((q, kp, vp, tables, lt), "kernel")
+            torch.cuda.synchronize()
+            n_cases += 1
+            acc, m, l = (t[:3] for t in got)
+            neutral = (bool((acc == 0).all()) and bool((l == 0).all())
+                       and bool((m == neg_inf).all())
+                       and bool(torch.isfinite(got[0]).all()))
+            if not neutral:
+                failures.append({"case": f"neutral rows P{P} {dtype}",
+                                 "acc_max": acc.abs().max().item(),
+                                 "l_max": l.abs().max().item(),
+                                 "m": m.flatten()[:4].tolist()})
+    # the split-KV merge over 2 and 4 shards against the unsharded K2, in
+    # float32: a short table (far shards hold nothing) and 8192 positions
+    # (several splits per shard)
+    for B, P, lengths in ((4, 8, [0, 17, 60, 127]),
+                          (4, 512, [8191, 5000, 2047, 100])):
+        args = paged_case(torch, gen, B, H, KH, D, B * P + 1, bs, P,
+                          lengths, torch.float32)
+        want = pa_ops.paged_attention(*args, backend="kernel")
+        for model in (2, 4):
+            got = pa_ops.paged_attention(*args, backend="kernel",
+                                         mesh=cuda_mesh(torch, 1, model))
+            torch.cuda.synchronize()
+            n_cases += 1
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            if not (torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+                    and bool(torch.isfinite(got).all())):
+                failures.append({"case": f"merge over {model} shards, "
+                                         f"{P} pages", "max_abs_err": err})
+    torch.cuda.synchronize()
+    cnt = pa_ops._COUNTERS.get(torch.device("cuda", 0))
+    left = 0 if cnt is None else int(cnt.abs().sum())
+    if left:
+        failures.append({"counters_left_nonzero": left})
+    pa_ops.reset_launches()
+    return {"name": "paged_attention_state", "cases": n_cases,
+            "tolerance": "float32: atol = rtol = 1e-5 on acc, m and l "
+                         "(the merge: on the output); bfloat16: acc / l "
+                         "within one bf16 unit (at magnitudes >= 2^-8), m "
+                         "within 1e-4; masked rows exactly (0, -0.7 "
+                         "FLT_MAX, 0)",
+            "max_abs_err": max_err,
+            "parity": "ok" if not failures else "FAILED",
+            "failures": failures[:10]}
+
+
+def check_bp_matmul_sharded(torch):
+    """The sharded BitParticle matmul bit-exact against the unsharded
+    kernel (raw int32 and fused float32, both modes): the reference's five
+    mesh shapes on a (2, 4) mesh of one card (column split, split-K,
+    replicated; the batch over "data" where it divides) and qwen2-1.5b's
+    gate/up at M 4 and 128 on (1, 2) and (2, 2)."""
+    from repro_torch.kernels.bitparticle_matmul import ops
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cases = [((b, s), k, n, (2, 4)) for b, s, k, n in
+             ((4, 1, 33, 128), (4, 4, 33, 128), (4, 1, 128, 130),
+              (4, 4, 128, 130), (5, 1, 33, 17))]
+    k_up, n_up = QWEN_KN[2]
+    cases += [((m,), k_up, n_up, mesh) for m in (4, 128)
+              for mesh in ((1, 2), (2, 2))]
+    failures, strategies = [], {}
+    for lead, k, n, shape in cases:
+        m = 1
+        for d in lead:
+            m *= d
+        a, w, sa, sw = _rand_case(torch, gen, m, k, n)
+        a, sa = a.reshape(*lead, k), sa.reshape(*lead, 1)
+        placed = ops.place_weight(w, sw, cuda_mesh(torch, *shape))
+        strategies[placed.strategy] = strategies.get(placed.strategy, 0) + 1
+        for name, approx in MODES:
+            got_i = ops.bp_matmul_sharded(a, placed, approx=approx,
+                                          backend="kernel")
+            want_i = ops.bp_matmul(a, w, approx=approx, backend="kernel")
+            got_f = ops.bp_matmul_sharded(a, placed, sa, approx=approx,
+                                          backend="kernel")
+            want_f = ops.bp_matmul(a, w, sa, sw, approx=approx,
+                                   backend="kernel")
+            torch.cuda.synchronize()
+            if not (torch.equal(got_i, want_i) and torch.equal(got_f,
+                                                              want_f)):
+                failures.append({"lead": lead, "k": k, "n": n,
+                                 "mesh": shape, "mode": name,
+                                 "strategy": placed.strategy})
+    ops.reset_launches()
+    return {"name": "bp_matmul_sharded", "cases": 4 * len(cases),
+            "strategies": strategies,
+            "tolerance": "bit-exact against the unsharded kernel (int32 "
+                         "and float32)",
+            "max_abs_err": 0.0 if not failures else None,
             "parity": "ok" if not failures else "FAILED",
             "failures": failures[:10]}
 
@@ -1180,8 +1394,8 @@ def reset_counts():
 
 def launch_counts():
     """Every kernel's launches since :func:`reset_counts`: K1 in all and
-    per route, K2, K2's calls routed to the plain gather (int8 KV pages),
-    and K3."""
+    per route, K2, K2s (its state variant), K2's calls routed to the plain
+    gather (int8 KV pages), and K3."""
     from repro_torch.kernels.bitparticle_matmul import ops as bp_ops
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.wkv6 import ops as wkv_ops
@@ -1189,6 +1403,8 @@ def launch_counts():
             "bp_matmul_gemv": bp_ops.LAUNCHES["gemv"],
             "bp_matmul_tile": bp_ops.LAUNCHES["tile"],
             "paged_attention": pa_ops.LAUNCHES["paged_attention"],
+            "paged_attention_state":
+                pa_ops.LAUNCHES["paged_attention_state"],
             "routed_plain_int8_kv": pa_ops.ROUTED_PLAIN["int8_kv"],
             "wkv6": wkv_ops.LAUNCHES["wkv6"]}
 
@@ -2801,6 +3017,252 @@ def phase_serve_frontdoor(torch, gpu, model, base, base_toks, n_slots=4,
     return result, launches
 
 
+#: serve_mesh: the (data, model) meshes of the paged serves, every shard on
+#: the one card, and the mesh of the slab serve
+MESH_PAGED = ((1, 2), (2, 2))
+MESH_SLAB = (1, 2)
+
+
+def mesh_routes(stream, per_forward, shape):
+    """K1's launches in a mesh serve, from its step stream: each forward's
+    ``per_forward`` projections (every one a column split: qwen2-1.5b's N
+    divide by 2) launch once per model shard and per data shard where the
+    forward's batch (a prefill's group, a decode step's slots) divides by
+    "data", else on data shard 0 alone; each shard's rows take the GEMV up
+    to 8, else the tiles.  Returns the launches by route and by shard, and
+    the data shards of the decode steps (K2s launches that many times the
+    model shards per layer per step)."""
+    from repro_torch.kernels.bitparticle_matmul.ops import GEMV_MAX_M
+    data, model = shape
+    routes, per_shard = {"gemv": 0, "tile": 0}, {}
+    decode_data = set()
+    for r in stream:
+        if r["kind"] == "prefill":
+            batch, rows = r["group_size"], r["pad_to"]
+        elif r["kind"] == "decode":
+            batch, rows = r["n_slots"], 1
+        else:
+            continue
+        n_d = data if batch % data == 0 else 1
+        if r["kind"] == "decode":
+            decode_data.add(n_d)
+        m = batch // n_d * rows
+        routes["tile" if m > GEMV_MAX_M else "gemv"] += (per_forward * model
+                                                         * n_d)
+        for i in range(n_d):
+            for j in range(model):
+                per_shard[f"{i},{j}"] = per_shard.get(f"{i},{j}",
+                                                      0) + per_forward
+    return routes, per_shard, decode_data
+
+
+def phase_serve_mesh(torch, gpu, model, paged_base, paged_toks, serve_base,
+                     serve_toks, n_slots=4, lead_window=4, block_size=16,
+                     num_blocks=PAGED_NUM_BLOCKS):
+    """Mesh serving on the card: ``serve_paged``'s workload and pool on
+    meshes (1, 2) and (2, 2), then ``serve``'s (slab, int8 KV) on (1, 2),
+    every shard on the one card (``MeshExecutor``, one controller).  The
+    quantized weights are ``build_model``'s, cut per shard at placement.
+    The paged table is widened to a multiple of 4 blocks, so every decode's
+    attention splits its KV over the model shards (K2s per shard, then the
+    state merge).  K1 and K2s launch exactly as the step stream predicts
+    (``mesh_routes``), K2 never; streams equal ``serve_paged``'s and
+    ``serve``'s except flips at argmax near-ties (the merge and the wider
+    table sum in another order), each reported."""
+    import numpy as np
+
+    from repro_torch import serving
+
+    params = model["params"]
+    sched = serving.SchedulerConfig(lead_window=lead_window)
+    runs = [("paged", shape) for shape in MESH_PAGED] + [("slab", MESH_SLAB)]
+    out = {"phase": "serve_mesh", "gpu": gpu, "model": model["cfg"].name,
+           "layers": model["cfg"].num_layers, "serves": []}
+    t_phase = time.perf_counter()
+    failed, state_shape = [], None
+    for backend, shape in runs:
+        cfg = model["cfg"].replace(kv_cache_int8=backend == "slab")
+        if backend == "paged":
+            prompts = _paged_requests(serving, np.random.default_rng(1),
+                                      cfg.vocab_size, 8)
+            want, base = paged_toks, paged_base
+            cache_T = max(r.prompt_len + r.max_new_tokens
+                          for r in prompts) + 8
+            # a table width that 2 and 4 divide
+            cache_T = -(-cache_T // (4 * block_size)) * 4 * block_size
+            kw = dict(num_blocks=num_blocks)
+        else:
+            prompts = _requests(serving, np.random.default_rng(0),
+                                cfg.vocab_size, 8)
+            want, base = serve_toks, serve_base
+            cache_T = max(r.prompt_len + r.max_new_tokens
+                          for r in prompts) + 8
+            kw = {}
+        mesh = cuda_mesh(torch, *shape)
+        engine = serving.ServingEngine(
+            cfg, params, serving.ServeConfig(
+                max_new_tokens=32, temperature=0.0, cache_backend=backend,
+                block_size=block_size, mesh_shape=shape),
+            executor=serving.make_executor(cfg, params, mesh=mesh))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        loop = engine.make_loop(_copies(serving, prompts), n_slots=n_slots,
+                                cache_T=cache_T, sched_cfg=sched, **kw)
+        step_lengths = []
+        if backend == "paged":
+            loop.on_step_end = lambda lp: step_lengths.append(
+                lp.cm.cache_len_vector().tolist())
+        report = loop.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        no_fault_guard(report, loop.stream, "serve_mesh")
+        toks = {r.request_id: r.tokens.tolist() for r in report.results}
+        routes, per_shard, decode_data = mesh_routes(
+            loop.stream, 7 * cfg.num_layers, shape)
+        k2s = (cfg.num_layers * shape[1] * max(decode_data, default=1)
+               * report.steps if backend == "paged" else 0)
+        expected = {"bp_matmul": routes["gemv"] + routes["tile"],
+                    "bp_matmul_gemv": routes["gemv"],
+                    "bp_matmul_tile": routes["tile"],
+                    "paged_attention": 0,
+                    "paged_attention_state": k2s,
+                    "routed_plain_int8_kv": 0}
+        flips = _stream_flips(torch, np, engine,
+                              [r.prompt for r in prompts], toks, want,
+                              cache_T, (f"mesh{shape[0]}x{shape[1]}",
+                                        "single"))
+        step_ms = [1e3 * r["wall_s"] for r in loop.stream
+                   if r["kind"] == "decode"]
+        p = serving.percentiles(step_ms, qs=(50, 90))
+        rec = {"cache_backend": backend, "mesh": list(shape),
+               "report_mesh_shape": list(report.mesh_shape or ()),
+               "cache_T": cache_T,
+               "blocks_per_seq": getattr(loop.cm, "blocks_per_seq", None),
+               "kv_cache_int8": cfg.kv_cache_int8,
+               "decode_steps": report.steps,
+               "total_new_tokens": report.total_new_tokens,
+               "n_preemptions": report.n_preemptions,
+               "launches": launches, "expected_launches": expected,
+               "bp_matmul_launches_per_shard": per_shard,
+               "decode_data_shards": sorted(decode_data),
+               "tokens_equal_single_device": not flips,
+               "flips": flips,
+               "decode_tokens_per_s": report.decode_tokens_per_s,
+               "step_wall_tokens_per_s": step_wall_rate(loop.stream),
+               "decode_step_ms_p50": p["p50"] if p else None,
+               "decode_step_ms_p90": p["p90"] if p else None,
+               "single_device_step_ms_p50": base["decode_step_ms_p50"],
+               "single_device_decode_tokens_per_s":
+                   base["decode_tokens_per_s"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "serve_wall_s": wall}
+        out["serves"].append(rec)
+        for name, n in expected.items():
+            if launches[name] != n:
+                failed.append(f"{backend} {shape}: {name} launched "
+                              f"{launches[name]} times, expected {n}")
+        if report.mesh_shape != shape:
+            failed.append(f"{backend} {shape}: report mesh_shape "
+                          f"{report.mesh_shape}")
+        bad = [f for f in flips if not f["near_tie"]]
+        if bad:
+            failed.append(f"{backend} {shape}: mesh and single-device "
+                          f"streams differ beyond a near-tie: {bad}")
+        if not all(r.finish_reason == "length" for r in report.results):
+            failed.append(f"{backend} {shape}: a request finished for "
+                          f"another reason than length")
+        if backend == "paged" and state_shape is None:
+            # the kernels line's K2s shape: this serve's median full-batch
+            # decode step
+            full = [ls for ls in step_lengths if min(ls) > 0] or step_lengths
+            state_shape = {"lengths": sorted(full, key=sum)[len(full) // 2],
+                           "pages_per_seq": loop.cm.blocks_per_seq,
+                           "model": shape[1]}
+        del engine, loop
+    reset_counts()
+    torch.cuda.empty_cache()
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    check(not failed, "; ".join(failed))
+    k2s_total = sum(s["launches"]["paged_attention_state"]
+                    for s in out["serves"])
+    k1_total = sum(s["launches"]["bp_matmul"] for s in out["serves"])
+    check(k2s_total > 0 and k1_total > 0,
+          f"serve_mesh launched K2s {k2s_total} and the sharded K1 "
+          f"{k1_total} times")
+    return out, {"bp_matmul_gemv": sum(s["launches"]["bp_matmul_gemv"]
+                                       for s in out["serves"]),
+                 "bp_matmul_tile": sum(s["launches"]["bp_matmul_tile"]
+                                       for s in out["serves"]),
+                 "paged_attention": 0,
+                 "paged_attention_state": k2s_total,
+                 "state_shape": state_shape}
+
+
+def state_layer_summary(torch, flush, shape, launches):
+    """The kernels line's numbers for K2s: one decoder layer's call on one
+    shard of ``serve_mesh``'s (1, 2) paged serve at its median full-batch
+    decode step (its slots and positions, half its table per shard), timed
+    on shard 0 (the nearer half of every table) and on the far shard beside
+    the plain version, the library yardstick (SDPA on the shard's K/V
+    gathered dense) and the bound (the shard's valid K/V rows, q, the
+    float32 state written once); and the whole split call (both shards and
+    the merge)."""
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    H, KH, D, bs = (QWEN_ATTN[k] for k in ("H", "KH", "D", "bs"))
+    lengths, P, model = shape["lengths"], shape["pages_per_seq"], \
+        shape["model"]
+    p_l, B = P // model, len(lengths)
+    q, kp, vp, tables, lens = paged_case(torch, gen, B, H, KH, D, B * P + 1,
+                                         bs, P, lengths, torch.bfloat16)
+
+    def shard(s):
+        return (q, kp, vp, tables[:, s * p_l:(s + 1) * p_l].contiguous(),
+                lens - s * p_l * bs)
+
+    near, far = shard(0), shard(model - 1)
+    got = pa_ops.paged_attention_state(*near, backend="kernel")
+    want = pa_ops.paged_attention_state(*near, backend="plain")
+    r_got, r_want, _, _ = _state_err(torch, got, want)
+    ms = time_ms(torch, lambda: pa_ops.paged_attention_state(
+        *near, backend="kernel"), flush)
+    far_ms = time_ms(torch, lambda: pa_ops.paged_attention_state(
+        *far, backend="kernel"), flush)
+    plain_ms = time_ms(torch, lambda: pa_ops.paged_attention_state(
+        *near, backend="plain"), flush, iters=10)
+    library_ms = time_ms(torch, _sdpa_on_gathered(torch, *near), flush)
+    mesh = cuda_mesh(torch, 1, model)
+    split_ms = time_ms(torch, lambda: pa_ops.paged_attention(
+        q, kp, vp, tables, lens, backend="kernel", mesh=mesh), flush)
+    bound_ms, bound_by = attention_bound(lengths, H, KH, D, bs, p_l,
+                                         state=True)
+    far_lengths = [int(n) - p_l * bs for n in lengths]
+    return {"name": "paged_attention_state", "route": "cuda",
+            "source": KERNEL_SOURCES["paged_attention"],
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:96 "
+                        "(return_state=True, epilogue _done at :82)",
+            "launches": launches["paged_attention_state"],
+            "max_abs_err": (r_got - r_want).abs().max().item(),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "far_shard_ms": far_ms,
+            "far_shard_bound_ms": attention_bound(
+                far_lengths, H, KH, D, bs, p_l, state=True)[0],
+            "split_call_ms": split_ms,
+            "shape": f"one decoder layer, shard 0 of {model} of the "
+                     f"serve_mesh (1, {model}) paged serve's median decode "
+                     f"step: B={B}, H 12, KH 2, D 128, block 16, {p_l} of "
+                     f"{P} pages per table, positions {list(lengths)}, "
+                     f"bf16 in, float32 state out; max_abs_err on acc / l; "
+                     f"library: SDPA (enable_gqa) on the shard's K/V "
+                     f"gathered dense beforehand; split_call_ms: both "
+                     f"shards and the merge"}
+
+
 def build_rwkv(torch):
     """Full-width, full-depth rwkv6-7b in bp_exact: random weights from
     seed 0, every dense weight quantized to int8 once.  Peak device memory
@@ -3083,17 +3545,19 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
         "chunk": chunk}
 
 
-def build_full(torch, name):
-    """Full-width, full-depth model in bp_exact: random weights from seed
-    0 (an MoE's expert stacks drawn a layer at a time straight into bf16),
-    every dense weight (attention, router, SSM projections, lm head)
-    quantized to int8 once.  Peak device memory of the initialisation and quantization is
-    measured on its own."""
+def build_full(torch, name, layers=None):
+    """Full-width model in bp_exact, full-depth unless ``layers`` cuts it:
+    random weights from seed 0 (an MoE's expert stacks drawn a layer at a
+    time straight into bf16), every dense weight (attention, router, SSM
+    projections, lm head) quantized to int8 once.  Peak device memory of
+    the initialisation and quantization is measured on its own."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models import api
     from repro_torch.models.layers import quantize_dense_params
 
     cfg = get_arch(name).replace(matmul_mode="bp_exact")
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3483,16 +3947,17 @@ def phase_serve_moe_model(torch, gpu, model, paged, n_requests, num_blocks,
 
 
 def phase_serve_moe(torch, gpu, paged):
-    """The MoE family, after the rwkv weights are freed: full-width,
-    full-depth moonshot-v1-16b-a3b on ``serve_paged``'s workload and pool
-    size, then a four-request full-width granite-moe-1b-a400m serve (K2's
+    """The MoE family, after the rwkv weights are freed: full-width
+    moonshot-v1-16b-a3b (cut to ``MOE_SERVES``' depth) on ``serve_paged``'s
+    workload and pool size, then a four-request full-width
+    granite-moe-1b-a400m serve (K2's
     head-dim-64 walk on a served path), each model built, served and freed
     in turn.  Returns ({model: record}, {model: launches}, {model: decode
     shape})."""
     import gc
     records, launches, shapes = {}, {}, {}
     for name, spec in MOE_SERVES.items():
-        model = build_full(torch, name)
+        model = build_full(torch, name, spec.get("layers"))
         try:
             records[name], launches[name], shapes[name] = \
                 phase_serve_moe_model(torch, gpu, model, paged,
@@ -4418,6 +4883,9 @@ def main() -> int:
         door, door_launches = phase_serve_frontdoor(torch, gpu, model,
                                                     paged, paged_toks)
         records.append({"serve_frontdoor": door})
+        mesh_rec, mesh_launches = phase_serve_mesh(
+            torch, gpu, model, paged, paged_toks, serve, serve_toks)
+        records.append({"serve_mesh": mesh_rec})
         del model
         rwkv = build_rwkv(torch)
         serve_rwkv, rwkv_launches, rwkv_shape = phase_serve_rwkv(
@@ -4443,6 +4911,7 @@ def main() -> int:
                  "serve_probe": probe_launches,
                  "serve_chaos": chaos_launches,
                  "serve_frontdoor": door_launches,
+                 "serve_mesh": mesh_launches,
                  "serve_rwkv": rwkv_launches,
                  "serve_moe": moe_launches["moonshot-v1-16b-a3b"],
                  "serve_moe_granite": moe_launches["granite-moe-1b-a400m"],
@@ -4450,12 +4919,15 @@ def main() -> int:
         pa = paged_layer_summary(
             torch, flush, paged_shape, paged_launches,
             {**moe_shapes, "qwen2-vl-7b": fam_shapes["serve_vlm"]})
+        pas = state_layer_summary(torch, flush, mesh_launches["state_shape"],
+                                  mesh_launches)
         for entry, key in ((bp, "bp_matmul_gemv"), (tile, "bp_matmul_tile"),
-                           (pa, "paged_attention")):
+                           (pa, "paged_attention"),
+                           (pas, "paged_attention_state")):
             entry["launches_by_path"] = {p: c.get(key, 0)
                                          for p, c in paths.items()}
         wk = wkv6_summary(torch, flush, gpu, rwkv_shape, rwkv_launches)
-        summary = [bp, tile, pa, wk]
+        summary = [bp, tile, pa, pas, wk]
         for k in summary:
             check(k["launches"] > 0,
                   f"{k['name']} was never launched on its main path")
@@ -4467,7 +4939,8 @@ def main() -> int:
     if args.details:
         pathlib.Path(args.details).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.details).write_text(json.dumps(
-            {"gpu": gpu, "records": records, "kernels": summary},
+            {"gpu": gpu, "records": records, "kernels": summary,
+             "phase_elapsed_s": _ELAPSED},
             indent=1))
     emit({"kernels": summary})
     print(smi, flush=True)

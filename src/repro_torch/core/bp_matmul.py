@@ -13,7 +13,9 @@ Modes:
                     approx(A @ W) = A@W - A0@Wlow4 - 4*(A1@W0)
 
 The backend is explicit: the config's ``matmul_backend`` travels with every
-call (no process-wide switch).  ``auto`` launches the CUDA kernel of
+call (no process-wide switch), and so does a mesh: a weight that the mesh
+executor placed is a ``MeshWeight`` that carries its shards, and
+``quantized_matmul`` runs it through ``bp_matmul_sharded``.  ``auto`` launches the CUDA kernel of
 ``repro_torch.kernels.bitparticle_matmul`` for CUDA tensors and runs the
 plain version for CPU tensors; ``plain`` runs the plain version anywhere;
 ``kernel`` forces the kernel.
@@ -74,12 +76,20 @@ def quantized_matmul(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     (N,)).  Activations are quantized PER ROW in x's own dtype (one scale
     per token position), so each row's numerics are independent of the rest
     of the batch.  The epilogue is ``float(acc) * (x_scale * w_scale)`` in
-    float32, cast to x.dtype.  Returns (..., N) in x.dtype."""
-    from repro_torch.kernels.bitparticle_matmul.ops import bp_matmul
+    float32, cast to x.dtype.  A placed ``MeshWeight`` carries its own
+    scale slices, and ``w_scale`` is then not read.  Returns (..., N) in
+    x.dtype."""
+    from repro_torch.kernels.bitparticle_matmul.ops import (
+        MeshWeight, bp_matmul, bp_matmul_sharded)
     x_scale = quant.compute_scale(x, axis=(-1,))   # (..., 1) per-row
     x_q = quant.quantize(x, x_scale)
-    out = bp_matmul(x_q, w, x_scale, w_scale, approx=(mode == "bp_approx"),
-                    backend=backend)
+    approx = mode == "bp_approx"
+    if isinstance(w, MeshWeight):
+        out = bp_matmul_sharded(x_q, w, x_scale, approx=approx,
+                                backend=backend)
+    else:
+        out = bp_matmul(x_q, w, x_scale, w_scale, approx=approx,
+                        backend=backend)
     return out.to(x.dtype)
 
 

@@ -28,6 +28,12 @@ Prefill calls (more rows) take the tensor-core tile kernels, whose tiles,
 K split and ring :func:`tile_plan` chooses; the K slices of one output
 tile run as a thread block cluster and sum through its shared memory.
 
+Under a mesh (``launch/mesh.py``) a weight is cut once, at placement,
+into a :class:`MeshWeight` (:func:`place_weight`), and
+:func:`bp_matmul_sharded` launches the kernel once per shard over its slice
+and combines the results on the mesh's device (the reference's
+``bp_matmul_sharded``; its strategies in :func:`_matmul_strategy`).
+
 Unlike the TPU wrapper there is no host-side padding (the kernel masks
 ragged edges itself) and the weight must be K-major: ``w_q`` is the logical
 (K, N) weight whose storage is (N, K) row-major, i.e. ``w_q.stride() ==
@@ -40,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -312,3 +318,124 @@ def bp_matmul(a_q: torch.Tensor, w_q: torch.Tensor,
         LAUNCHES["bp_matmul"] += 1
         LAUNCHES[route] += 1
     return out.reshape(*lead, n)
+
+
+def _matmul_strategy(lead: Sequence[int], k: int, n: int, axes: dict):
+    """(batch_axis, strategy) of one sharded matmul call, as the
+    reference's: ``col`` splits the weight's columns over "model" wherever
+    N divides (no combine), else ``splitk`` splits the contraction where K
+    divides (an exact int32 sum combines the shards), else ``rep`` computes
+    whole.  The batch axis is "data" where it divides the leading dim."""
+    model = axes.get("model", 1)
+    data = axes.get("data", 1)
+    batch_axis = ("data" if lead and data > 1 and lead[0] % data == 0
+                  else None)
+    if model > 1 and n % model == 0:
+        return batch_axis, "col"
+    if model > 1 and k % model == 0:
+        return batch_axis, "splitk"
+    return batch_axis, "rep"
+
+
+class MeshWeight:
+    """An int8 (..., K, N) weight and its per-channel scale (..., N), cut
+    for a mesh's "model" shards once, at placement: ``col`` keeps each
+    shard's columns (views of the K-major storage, which stay K-major),
+    ``splitk`` each shard's K rows (re-made K-major, see :func:`kmajor`)
+    with the scale whole, ``rep`` the whole weight.  Indexing a stacked
+    weight indexes every slice (``layers.stack_slice``)."""
+
+    dtype = torch.int8
+
+    def __init__(self, mesh, strategy: str, k: int, n: int, weights,
+                 scales):
+        self.mesh, self.strategy, self.k, self.n = mesh, strategy, k, n
+        self.weights, self.scales = tuple(weights), tuple(scales)
+
+    @property
+    def shape(self):
+        return (*self.weights[0].shape[:-2], self.k, self.n)
+
+    def __getitem__(self, idx) -> "MeshWeight":
+        return MeshWeight(self.mesh, self.strategy, self.k, self.n,
+                          [w[idx] for w in self.weights],
+                          [s[idx] for s in self.scales])
+
+
+def place_weight(w_q: torch.Tensor, scale_w: torch.Tensor,
+                 mesh) -> MeshWeight:
+    """Cut the int8 (..., K, N) K-major weight ``w_q`` and its scale (...,
+    N) for ``mesh`` (see :class:`MeshWeight`), on the mesh's device."""
+    from repro_torch.distributed.sharding import mesh_axes_dict
+    k, n = w_q.shape[-2:]
+    model = mesh_axes_dict(mesh).get("model", 1)
+    _, strategy = _matmul_strategy((), k, n, {"model": model})
+    devs = [mesh.devices[0, j] for j in range(model)]
+    if strategy == "col":
+        nl = n // model
+        weights = [w_q[..., j * nl:(j + 1) * nl].to(devs[j])
+                   for j in range(model)]
+        scales = [scale_w[..., j * nl:(j + 1) * nl].to(devs[j])
+                  for j in range(model)]
+    elif strategy == "splitk":
+        kl = k // model
+        weights = [kmajor(w_q[..., j * kl:(j + 1) * kl, :]).to(devs[j])
+                   for j in range(model)]
+        scales = [scale_w.to(mesh.home)]
+    else:
+        weights, scales = [w_q.to(devs[0])], [scale_w.to(devs[0])]
+    return MeshWeight(mesh, strategy, k, n, weights, scales)
+
+
+def bp_matmul_sharded(a_q: torch.Tensor, w: MeshWeight,
+                      scale_a: Optional[torch.Tensor] = None, *,
+                      approx: bool = False, backend: str = "auto"
+                      ) -> torch.Tensor:
+    """:func:`bp_matmul` over a placed weight: one launch per shard on its
+    slice (a data shard takes its rows of ``a_q`` where the leading dim
+    divides), the results joined on the mesh's device.  ``scale_a`` (...,
+    1) or (...,) with the weight's own scale, or neither.  ``col`` and
+    ``rep`` apply the fused epilogue per shard; ``splitk`` sums the int32
+    partials exactly and then applies the kernel's epilogue ``float(acc) *
+    (scale_a * scale_w)``, so every strategy is bit-identical to the
+    unsharded kernel (approx mode too: its correction terms are linear in
+    K)."""
+    from repro_torch.distributed.sharding import (combine_matmul_partials,
+                                                  mesh_axes_dict)
+    *lead, k = a_q.shape
+    if k != w.k:
+        raise ValueError(f"shape mismatch: a {tuple(a_q.shape)} w "
+                         f"{w.shape}")
+    axes = mesh_axes_dict(w.mesh)
+    batch_axis, strategy = _matmul_strategy(lead, k, w.n, axes)
+    n_data = axes["data"] if batch_axis else 1
+    home = w.mesh.home
+    sa = (None if scale_a is None else
+          scale_a.to(torch.float32).reshape(*lead, 1))
+    a_rows = a_q.chunk(n_data) if n_data > 1 else (a_q,)
+    sa_rows = ((None,) * n_data if sa is None else
+               sa.chunk(n_data) if n_data > 1 else (sa,))
+    outs = []
+    for devs, a_i, sa_i in zip(w.mesh.devices, a_rows, sa_rows):
+        def run(j, a, weight, scale=None):
+            return bp_matmul(
+                a.to(devs[j]), weight,
+                None if scale is None else sa_i.to(devs[j]), scale,
+                approx=approx, backend=backend).to(home)
+
+        if strategy == "col":
+            outs.append(torch.cat(
+                [run(j, a_i, wj, None if sa is None else sj)
+                 for j, (wj, sj) in enumerate(zip(w.weights, w.scales))],
+                dim=-1))
+        elif strategy == "splitk":
+            kl = k // len(w.weights)
+            acc = combine_matmul_partials(
+                [run(j, a_i[..., j * kl:(j + 1) * kl].contiguous(), wj)
+                 for j, wj in enumerate(w.weights)])
+            outs.append(acc if sa is None else
+                        acc.to(torch.float32) * (sa_i * w.scales[0]))
+        else:
+            outs.append(run(0, a_i, w.weights[0],
+                            None if sa is None else w.scales[0]))
+    return outs[0] if n_data == 1 else torch.cat(outs)

@@ -1,8 +1,11 @@
-"""Paged-attention decode: CUDA kernel (``csrc/paged_attention.cu``), its
-wrapper (``ops.py``) and its plain PyTorch version (``ref.py``)."""
+"""Paged-attention decode: CUDA kernel and its state variant
+(``csrc/paged_attention.cu``), their wrapper and mesh split (``ops.py``)
+and their plain PyTorch versions (``ref.py``)."""
 
 from repro_torch.kernels.paged_attention.ops import (LAUNCHES, ROUTED_PLAIN,
                                                      paged_attention,
+                                                     paged_attention_state,
                                                      reset_launches)
 
-__all__ = ["LAUNCHES", "ROUTED_PLAIN", "paged_attention", "reset_launches"]
+__all__ = ["LAUNCHES", "ROUTED_PLAIN", "paged_attention",
+           "paged_attention_state", "reset_launches"]

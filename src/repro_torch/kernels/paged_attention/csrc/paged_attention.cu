@@ -13,6 +13,17 @@
 //   masked scores are -0.7 * FLT_MAX and contribute exactly 0;
 //   out     = acc / max(l, 1e-37)                        (in q's dtype)
 //
+// The state variant (``paged_attention_state_launch``, the reference's
+// ``return_state=True``, K2s) runs the same walk and merge and skips the
+// division: it writes the raw flash-decoding state (acc, m, l) in float32,
+// acc (B, KH, G, D) unnormalized and m, l (B, KH, G, 1).  Shards of a
+// split-KV mesh each run it over their slice of the table and merge the
+// states (``distributed/sharding.py::combine_softmax_state``).  A far
+// shard's rebased length is negative, so all its positions are masked: every
+// split walks nothing and holds the neutral state (acc 0, m -0.7 FLT_MAX,
+// l 0); each merge of neutral states weighs them by exp(0) = 1, so the
+// written state is exactly neutral, finite, and nothing divides by l.
+//
 // with page(t) = tables[b, t / bs].  Unused table entries point at page 0,
 // the pool's trash page; only positions <= lengths[b] are ever read.
 //
@@ -33,9 +44,10 @@
 //     position lengths[b]: a later position is masked, and in the reference
 //     it leaves the state unchanged (every exp is 0, corr = 1), so skipping
 //     it is exact; a split whose positions all lie past it contributes the
-//     neutral state (m = -0.7 FLT_MAX, l = 0, acc = 0).  Position 0 is
-//     always valid, so the merged m is finite, and a length-0 slot whose
-//     table is all trash still gives finite output.
+//     neutral state (m = -0.7 FLT_MAX, l = 0, acc = 0).  Every m stays
+//     finite (at least -0.7 FLT_MAX), so no exp sees inf - inf; a length-0
+//     slot whose table is all trash gives finite output, and so does a
+//     negative length (all masked: 0 / max(0, 1e-37) = 0).
 //   * A block reads its own table entries (no scalar prefetch): once, for
 //     its run of pages, into shared memory, while it reads the length.
 //   * More than 8 query rows per kv head (G > 8) are taken in groups of at
@@ -592,10 +604,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp,
                        const int* __restrict__ tables,
                        const int* __restrict__ lengths, T* __restrict__ out,
-                       int H, int KH, int D, int bs, int bs_shift, int P,
-                       int GS, int rps, int slots, int vec,
-                       float* __restrict__ part, int* __restrict__ cnt,
-                       float scale) {
+                       float* __restrict__ st_acc, float* __restrict__ st_m,
+                       float* __restrict__ st_l, int H, int KH, int D, int bs,
+                       int bs_shift, int P, int GS, int rps, int slots,
+                       int vec, float* __restrict__ part,
+                       int* __restrict__ cnt, float scale) {
   constexpr int GT = Walk::GT;
   const int n_groups = gridDim.x / KH;
   const int kh = blockIdx.x / n_groups, gi = blockIdx.x - kh * n_groups;
@@ -610,6 +623,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int sst = dp + 2;
   const long walks = (long)gridDim.x * gridDim.y;
   const long bkg = ((long)b * KH + kh) * n_groups + gi;
+  // the state variant writes (acc, m, l) in place of out
+  const bool state = st_acc != nullptr;
 
   extern __shared__ __align__(128) char smem[];
   __shared__ int is_last;
@@ -621,7 +636,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       reinterpret_cast<float*>(smem + ring_bytes(row_bytes, slots, n_split));
   int* tbl_s = reinterpret_cast<int*>(bufs + kWarps * kWarpBufFloats);
 
-  const long q_base = ((long)b * H + (long)kh * G + gi * GS) * D;
+  const long row0 = (long)b * H + (long)kh * G + gi * GS;  // query row
+  const long q_base = row0 * D;
   Walk walk;
   walk.init(q, q_base, gs, D, cpr, scale);
 
@@ -712,12 +728,20 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
       a += wts[w * GT + g] * st[(w * GT + g) * sst + d];
-    if (n_split == 1)
-      store(&out[q_base + i], a / fmaxf(L[g], 1e-37f));
-    else
+    if (n_split > 1)
       part_acc[g * dp4 + d] = a;
+    else if (state)
+      st_acc[q_base + i] = a;
+    else
+      store(&out[q_base + i], a / fmaxf(L[g], 1e-37f));
   }
-  if (n_split == 1) return;
+  if (n_split == 1) {
+    if (state && tid < gs) {
+      st_m[row0 + tid] = wts[kWarps * GT + tid];
+      st_l[row0 + tid] = L[tid];
+    }
+    return;
+  }
   if (tid < gs) {
     part_ml[2 * tid] = wts[kWarps * GT + tid];
     part_ml[2 * tid + 1] = L[tid];
@@ -758,7 +782,13 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(kFull, l, o);
-    if (lane == 0) Lz[g] = l;
+    if (lane == 0) {
+      Lz[g] = l;
+      if (state) {
+        st_m[row0 + g] = m;
+        st_l[row0 + g] = l;
+      }
+    }
   }
   __syncthreads();
   const float4* acc_all =
@@ -789,7 +819,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 4 * d4 + e;
-      if (d < D) store(&out[q_base + (long)g * D + d], r[e] / l);
+      if (d >= D) continue;
+      if (state)
+        st_acc[q_base + (long)g * D + d] = r[e];
+      else
+        store(&out[q_base + (long)g * D + d], r[e] / l);
     }
   }
   if (tid == 0) cnt[bkg] = 0;
@@ -797,7 +831,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
 template <typename T, class Walk>
 int launch(const void* q, const void* k, const void* v, const int* tables,
-           const int* lengths, void* out, int B, int H, int KH, int D,
+           const int* lengths, void* out, float* st_acc, float* st_m,
+           float* st_l, int B, int H, int KH, int D,
            int bs, int P, int n_groups, int GS, float scale, int n_split,
            int rps, int vec, float* part, int* cnt, cudaStream_t stream) {
   const int row_bytes = ((D * (int)sizeof(T) + 15) / 16) * 16;
@@ -828,19 +863,21 @@ int launch(const void* q, const void* k, const void* v, const int* tables,
   dim3 grid(KH * n_groups, B, n_split);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, lengths, static_cast<T*>(out), H, KH,
-      D, bs, bs_shift, P, GS, rps, slots, vec, part, cnt, scale);
+      static_cast<const T*>(v), tables, lengths, static_cast<T*>(out), st_acc,
+      st_m, st_l, H, KH, D, bs, bs_shift, P, GS, rps, slots, vec, part, cnt,
+      scale);
   return 0;
 }
 
 // the arguments of ``launch`` after its template parameters
 #define PA_ARGS                                                            \
-  q, k, v, tables, lengths, out, B, H, KH, D, bs, P, n_groups, GS, scale, \
-      n_split, rps, vec, part, cnt, s
+  q, k, v, tables, lengths, out, st_acc, st_m, st_l, B, H, KH, D, bs, P, \
+      n_groups, GS, scale, n_split, rps, vec, part, cnt, s
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const int* tables,
-             const int* lengths, void* out, int B, int H, int KH, int D,
+             const int* lengths, void* out, float* st_acc, float* st_m,
+             float* st_l, int B, int H, int KH, int D,
              int bs, int P, int n_groups, int GS, float scale, int n_split,
              int rps, int vec, float* part, int* cnt, cudaStream_t s) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
@@ -854,6 +891,46 @@ int dispatch(const void* q, const void* k, const void* v, const int* tables,
 }
 
 #undef PA_ARGS
+
+// checks the arguments and launches on ``stream``: the output ``out`` (q's
+// dtype), or with ``st_acc`` non-null the state (st_acc, st_m, st_l)
+int run(const void* q, const void* k, const void* v, const void* tables,
+        const void* lengths, void* out, float* st_acc, float* st_m,
+        float* st_l, int B, int H, int KH, int D, int bs, int P, float scale,
+        int dtype, int n_groups, int n_split, int rows_per_split, void* part,
+        void* cnt, void* stream) {
+  const size_t esize = dtype == 1 ? 2 : 4;
+  if (B <= 0 || KH <= 0 || H % KH != 0 || D <= 0 || bs <= 0 || P <= 0 ||
+      (dtype != 0 && dtype != 1) || D * esize > (size_t)kMaxRowBytes ||
+      n_groups <= 0 || n_split <= 0 || n_split > kMaxSplits ||
+      rows_per_split <= 0 || rows_per_split % kStageRows != 0 ||
+      (long)n_split * rows_per_split < (long)P * bs ||
+      (n_split > 1 && (part == nullptr || cnt == nullptr)) ||
+      (st_acc == nullptr ? out == nullptr
+                         : (st_m == nullptr || st_l == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int G = H / KH;
+  const int GS = (G + n_groups - 1) / n_groups;
+  if (GS > kMaxG || (n_groups - 1) * GS >= G) return (int)cudaErrorInvalidValue;
+  const int* tables_i = static_cast<const int*>(tables);
+  const int* lengths_i = static_cast<const int*>(lengths);
+  float* part_f = static_cast<float*>(part);
+  int* cnt_i = static_cast<int*>(cnt);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = (D * esize) % 16 == 0 &&
+                  ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  const int rc =
+      dtype == 1
+          ? dispatch<__nv_bfloat16>(q, k, v, tables_i, lengths_i, out,
+                                    st_acc, st_m, st_l, B, H, KH, D, bs, P,
+                                    n_groups, GS, scale, n_split,
+                                    rows_per_split, vec, part_f, cnt_i, s)
+          : dispatch<float>(q, k, v, tables_i, lengths_i, out, st_acc, st_m,
+                            st_l, B, H, KH, D, bs, P, n_groups, GS, scale,
+                            n_split, rows_per_split, vec, part_f, cnt_i, s);
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -877,35 +954,26 @@ int paged_attention_launch(const void* q, const void* k, const void* v,
                            int P, float scale, int dtype, int n_groups,
                            int n_split, int rows_per_split, void* part,
                            void* cnt, void* stream) {
-  const size_t esize = dtype == 1 ? 2 : 4;
-  if (B <= 0 || KH <= 0 || H % KH != 0 || D <= 0 || bs <= 0 || P <= 0 ||
-      (dtype != 0 && dtype != 1) || D * esize > (size_t)kMaxRowBytes ||
-      n_groups <= 0 || n_split <= 0 || n_split > kMaxSplits ||
-      rows_per_split <= 0 || rows_per_split % kStageRows != 0 ||
-      (long)n_split * rows_per_split < (long)P * bs ||
-      (n_split > 1 && (part == nullptr || cnt == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const int G = H / KH;
-  const int GS = (G + n_groups - 1) / n_groups;
-  if (GS > kMaxG || (n_groups - 1) * GS >= G) return (int)cudaErrorInvalidValue;
-  const int* tables_i = static_cast<const int*>(tables);
-  const int* lengths_i = static_cast<const int*>(lengths);
-  float* part_f = static_cast<float*>(part);
-  int* cnt_i = static_cast<int*>(cnt);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = (D * esize) % 16 == 0 &&
-                  ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
-  const int rc =
-      dtype == 1
-          ? dispatch<__nv_bfloat16>(q, k, v, tables_i, lengths_i, out, B, H,
-                                    KH, D, bs, P, n_groups, GS, scale,
-                                    n_split, rows_per_split, vec, part_f,
-                                    cnt_i, s)
-          : dispatch<float>(q, k, v, tables_i, lengths_i, out, B, H, KH, D,
-                            bs, P, n_groups, GS, scale, n_split,
-                            rows_per_split, vec, part_f, cnt_i, s);
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  return run(q, k, v, tables, lengths, out, nullptr, nullptr, nullptr, B, H,
+             KH, D, bs, P, scale, dtype, n_groups, n_split, rows_per_split,
+             part, cnt, stream);
+}
+
+// The state variant: the arguments of ``paged_attention_launch`` with the
+// output replaced by three contiguous float32 ones, acc (B, H, D) (the
+// reference's (B, KH, G, D)) and m, l (B, H) (its (B, KH, G, 1)).
+int paged_attention_state_launch(const void* q, const void* k,
+                                 const void* v, const void* tables,
+                                 const void* lengths, void* acc, void* m,
+                                 void* l, int B, int H, int KH, int D,
+                                 int bs, int P, float scale, int dtype,
+                                 int n_groups, int n_split,
+                                 int rows_per_split, void* part, void* cnt,
+                                 void* stream) {
+  return run(q, k, v, tables, lengths, nullptr, static_cast<float*>(acc),
+             static_cast<float*>(m), static_cast<float*>(l), B, H, KH, D, bs,
+             P, scale, dtype, n_groups, n_split, rows_per_split, part, cnt,
+             stream);
 }
 
 }  // extern "C"

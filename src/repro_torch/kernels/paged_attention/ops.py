@@ -3,7 +3,10 @@
 
 ``paged_attention`` checks device, dtype, shape and contiguity, allocates
 the output, launches the kernel on PyTorch's current stream and counts the
-launch in :data:`LAUNCHES`.  Backends, as the BitParticle matmul's:
+launch in :data:`LAUNCHES`.  ``paged_attention_state`` does the same for
+the kernel's state variant (K2s: the raw flash-decoding state (acc, m, l),
+not normalized), counted under its own key.  Backends, as the BitParticle
+matmul's:
 
   ``auto``    the kernel for CUDA tensors, the plain version (``ref.py``)
               for CPU tensors;
@@ -23,10 +26,19 @@ arrival counter that the kernel leaves zeroed (:func:`_counters`, one
 buffer per device, grown on demand), so calls on one device must run on one
 stream at a time: every host thread of the serving path launches on the
 device's default stream (see ``bitparticle_matmul/ops.py``), and the
-buffer's growth and the counts are guarded by a lock.
+buffer's growth and the counts are guarded by a lock.  The state variant
+shares the plan and the counters.
 
-The split-KV ``return_state`` variant of the reference (the mesh's
-flash-decoding merge) is not ported.
+Under a mesh (``mesh=``, see ``launch/mesh.py``) the call is split as the
+reference's ``shard_map`` splits it: the block tables' page dimension over
+``"model"`` where it divides (split KV: shard s takes table columns [s P_l,
+(s + 1) P_l) and the length rebased by s P_l bs, negative on a far shard,
+runs the state variant, and the shards' states merge through
+``sharding.combine_softmax_state``), and the batch over ``"data"`` where it
+divides (a data shard without a KV split runs the plain kernel).  The page
+pool is whole on the mesh's one device.  The shards launch one after
+another on the default stream.  int8 KV scale pages take the plain gather
+unsharded, as the reference takes its gather before it looks at the mesh.
 """
 
 from __future__ import annotations
@@ -62,7 +74,7 @@ MERGE_STAGES = 1
 
 #: kernel launches since the last :func:`reset_launches` (plain-version
 #: calls are not counted)
-LAUNCHES = {"paged_attention": 0}
+LAUNCHES = {"paged_attention": 0, "paged_attention_state": 0}
 #: calls on CUDA tensors that ``auto`` routed to the plain version, by reason
 ROUTED_PLAIN = {"int8_kv": 0}
 
@@ -71,7 +83,8 @@ _LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    LAUNCHES["paged_attention"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
     ROUTED_PLAIN["int8_kv"] = 0
 
 
@@ -147,18 +160,54 @@ def _counters(dev: torch.device, n: int) -> torch.Tensor:
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor, *, k_scale_pages=None,
-                    v_scale_pages=None, backend: str = "auto"
+                    v_scale_pages=None, backend: str = "auto", mesh=None
                     ) -> torch.Tensor:
     """Paged decode attention.  q: (B, H, D); k_pages/v_pages: (N, bs, KH,
     D); block_tables: (B, P) page ids; lengths: (B,) last valid position
     (inclusive, any integer dtype).  Optional int8-KV scale pages (N, bs,
-    KH).  Returns (B, H, D) in q.dtype."""
+    KH).  ``mesh``: split the call over a mesh's shards (see the module's
+    docstring).  Returns (B, H, D) in q.dtype."""
     scaled = k_scale_pages is not None or v_scale_pages is not None
+    if mesh is not None and not scaled:
+        return _paged_attention_sharded(q, k_pages, v_pages, block_tables,
+                                        lengths, backend=backend, mesh=mesh)
     if not _use_kernel(q, backend, scaled):
         return ref.paged_attention_plain(
             q, k_pages, v_pages, block_tables, lengths,
             k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
+    out = torch.empty_like(q)
+    _launch("paged_attention", q, k_pages, v_pages, block_tables, lengths,
+            (out,))
+    return out
 
+
+def paged_attention_state(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, block_tables: torch.Tensor,
+                          lengths: torch.Tensor, *, backend: str = "auto"):
+    """The state variant (K2s): the arguments of :func:`paged_attention`
+    without scale pages; returns float32 (acc (B, KH, G, D) unnormalized,
+    m (B, KH, G, 1), l (B, KH, G, 1)).  A row with no valid position (a
+    negative length) gives exactly (0, -0.7 FLT_MAX, 0)."""
+    if not _use_kernel(q, backend, False):
+        return ref.paged_attention_state_plain(q, k_pages, v_pages,
+                                               block_tables, lengths)
+    B, H, D = q.shape
+    KH = k_pages.shape[2]
+    G = H // KH
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((B, KH, G, D), **f32)
+    m = torch.empty((B, KH, G, 1), **f32)
+    l = torch.empty((B, KH, G, 1), **f32)
+    _launch("paged_attention_state", q, k_pages, v_pages, block_tables,
+            lengths, (acc, m, l))
+    return acc, m, l
+
+
+def _launch(kind: str, q, k_pages, v_pages, block_tables, lengths,
+            outs) -> None:
+    """Check the inputs and launch ``kind`` (``paged_attention``: one
+    output in q's dtype; ``paged_attention_state``: acc, m and l in
+    float32) into ``outs``."""
     B, H, D = q.shape
     N, bs, KH, Dk = k_pages.shape
     P = block_tables.shape[-1]
@@ -188,9 +237,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     # int64): a no-op when they already are
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
     if B == 0:
-        return out
+        return
     G = H // KH
     n_groups = -(-G // MAX_GROUP)
     group = -(-G // n_groups)
@@ -203,21 +251,60 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         cnt = _counters(dev, B * KH * n_groups)
     from repro_torch.kernels.paged_attention.build import library
     lib = library()
+    fn = getattr(lib, f"{kind}_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.paged_attention_launch(
+        rc = fn(
             ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k_pages.data_ptr()),
             ctypes.c_void_p(v_pages.data_ptr()),
             ctypes.c_void_p(tables.data_ptr()),
-            ctypes.c_void_p(lens.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(lens.data_ptr()),
+            *(ctypes.c_void_p(t.data_ptr()) for t in outs),
             B, H, KH, D, bs, P, ctypes.c_float(D ** -0.5), code, n_groups,
             n_split, rows,
             ctypes.c_void_p(0 if part is None else part.data_ptr()),
             ctypes.c_void_p(0 if cnt is None else cnt.data_ptr()),
             ctypes.c_void_p(stream))
     if rc != 0:
-        raise KernelError(f"paged_attention kernel launch failed: CUDA "
-                          f"error {rc}")
+        raise KernelError(f"{kind} kernel launch failed: CUDA error {rc}")
     with _LOCK:
-        LAUNCHES["paged_attention"] += 1
-    return out
+        LAUNCHES[kind] += 1
+
+
+def _paged_attention_sharded(q, k_pages, v_pages, block_tables, lengths, *,
+                             backend: str, mesh) -> torch.Tensor:
+    """The mesh split of :func:`paged_attention` (the reference's
+    ``_paged_attention_sharded``): a batch cut over "data" and a table cut
+    over "model" where each divides; with neither, one unsharded call."""
+    from repro_torch.distributed import sharding
+    axes = sharding.mesh_axes_dict(mesh)
+    data, model = axes.get("data", 1), axes.get("model", 1)
+    B = q.shape[0]
+    bs = k_pages.shape[1]
+    P = block_tables.shape[1]
+    n_data = data if data > 1 and B % data == 0 else 1
+    kv_split = model > 1 and P % model == 0
+    rows, p_l = B // n_data, P // model
+    lengths = torch.as_tensor(lengths, device=q.device)
+    outs = []
+    for i in range(n_data):
+        sl = slice(i * rows, (i + 1) * rows)
+        q_i, bt_i, ln_i = q[sl], block_tables[sl], lengths[sl]
+        if not kv_split:
+            dev = mesh.devices[i, 0]
+            outs.append(paged_attention(
+                q_i.to(dev), k_pages, v_pages, bt_i.to(dev), ln_i.to(dev),
+                backend=backend).to(q.device))
+            continue
+        states = []
+        for s in range(model):
+            dev = mesh.devices[i, s]
+            acc, m, l = paged_attention_state(
+                q_i.to(dev), k_pages, v_pages,
+                bt_i[:, s * p_l:(s + 1) * p_l].to(dev),
+                (ln_i - s * p_l * bs).to(dev), backend=backend)
+            states.append((acc.to(q.device), m.to(q.device),
+                           l.to(q.device)))
+        out = sharding.combine_softmax_state(*zip(*states))
+        outs.append(out.reshape(q_i.shape).to(q.dtype))
+    return outs[0] if n_data == 1 else torch.cat(outs)

@@ -7,7 +7,9 @@ same masking and the same float32 softmax.  The tests hold it against the
 JAX package, and ``chip_smoke.py`` holds the CUDA kernel against it on the
 card.  The serving path runs it for tensors on the CPU, for int8 KV scale
 pages (the kernel gathers float pages only), or when the ``plain`` backend
-is asked for by name.
+is asked for by name.  :func:`paged_attention_state_plain` is the same for
+the state variant (the reference kernel's ``return_state=True``), which a
+split-KV mesh shard runs.
 """
 
 from __future__ import annotations
@@ -56,3 +58,32 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
         p = p * vs.permute(0, 2, 1)[:, :, None, :]
     out = torch.einsum("bkgt,btkd->bkgd", p, v.to(torch.float32))
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def paged_attention_state_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                lengths: torch.Tensor):
+    """The raw flash-decoding state of :func:`paged_attention_plain`
+    without its normalization: (acc (B, KH, G, D), m (B, KH, G, 1), l (B,
+    KH, G, 1)), all float32, with m the largest valid score, l the sum of
+    e^(s - m) over valid positions and acc that sum's weighted values.  A
+    row with no valid position (a negative length) gives the neutral state
+    (0, -0.7 FLT_MAX, 0)."""
+    B, H, D = q.shape
+    KH = k_pages.shape[2]
+    G = H // KH
+    dev = q.device
+    k = gather_pages(k_pages, block_tables)       # (B, T, KH, D)
+    v = gather_pages(v_pages, block_tables)
+    T = k.shape[1]
+    qr = (q.to(torch.float32) * D ** -0.5).reshape(B, KH, G, D)
+    s = torch.einsum("bkgd,btkd->bkgt", qr, k.to(torch.float32))
+    lengths = torch.as_tensor(lengths, device=dev)
+    valid = (torch.arange(T, device=dev)[None, :]
+             <= lengths[:, None])[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(valid, torch.exp(s - m), 0.0)
+    acc = torch.einsum("bkgt,btkd->bkgd", e, v.to(torch.float32))
+    return acc, m, e.sum(dim=-1, keepdim=True)

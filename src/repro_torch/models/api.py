@@ -11,7 +11,8 @@
     verify_step_probed / verify_step_paged_probed -> (..., stats)
 
 
-plus the slab and block-paged cache helpers the serving engine uses.  The
+plus the slab and block-paged cache helpers the serving engine uses, and
+the partition specs of a mesh (``param_pspecs``, ``cache_pspecs``).  The
 dense, mixture-of-experts and vision-language families (``causal_lm``)
 have every entry point.  The RWKV-6 (``ssm``, ``rwkv_model``), hybrid
 (``zamba_model``) and encoder-decoder (``audio``, ``encdec``) families
@@ -275,3 +276,64 @@ def paged_insert(cfg, pages, src_cache, block_ids: torch.Tensor,
         page[:, ids] = row.reshape(L, P, T // P,
                                    *row.shape[2:]).to(page.dtype)
     return pages
+
+
+# ---------------------------------------------------------------------------
+# Partition specs of mesh serving: logical axes -> per-dimension mesh axes
+# (``distributed/sharding.py``)
+# ---------------------------------------------------------------------------
+
+def cache_logical_axes(cfg) -> Dict[str, tuple]:
+    """Logical axis names of every slab decode-cache leaf, resolved by the
+    decode recipe: slots over "data", the KV sequence over "model"."""
+    kv = (None, "batch", "cache_seq", "heads", None)
+    sc = (None, "batch", "cache_seq", "heads")
+    if cfg.family in _PAGED_FAMILIES:
+        if cfg.kv_cache_int8:
+            return {"k": kv, "k_scale": sc, "v": kv, "v_scale": sc}
+        return {"k": kv, "v": kv}
+    if cfg.family == "ssm":
+        return {"wkv": (None, "batch", "heads", None, None),
+                "x_tm": (None, "batch", None),
+                "x_cm": (None, "batch", None)}
+    if cfg.family == "hybrid":
+        return {"conv": (None, None, "batch", None, None),
+                "ssm": (None, None, "batch", "heads", None, None),
+                "k": kv, "v": kv}
+    if cfg.family == "audio":
+        return {"k": kv, "v": kv, "cross_k": kv, "cross_v": kv,
+                "cross_len": ("batch",)}
+    raise NotImplementedError(f"family {cfg.family!r} is not ported")
+
+
+def cache_pspec_tree(cfg, cache_like, mesh_axes, *, paged: bool = False
+                     ) -> Dict[str, tuple]:
+    """Spec of every leaf of ``cache_like`` (tensors, or the (shape, dtype)
+    pairs of :func:`cache_specs`).  The paged cache is whole: its page
+    pool has no batch or sequence axis to split, and the block tables go
+    whole too."""
+    from repro_torch.distributed import sharding
+
+    axes = sharding.mesh_axes_dict(mesh_axes)
+    names = None if paged else cache_logical_axes(cfg)
+    out = {}
+    for name, leaf in cache_like.items():
+        shape = tuple(leaf.shape if isinstance(leaf, torch.Tensor)
+                      else leaf[0])
+        out[name] = (sharding.logical_pspec(shape, names[name], axes)
+                     if names is not None else (None,) * len(shape))
+    return out
+
+
+def cache_pspecs(cfg, n_slots: int, cache_T: int, mesh_axes
+                 ) -> Dict[str, tuple]:
+    """Specs of the pooled slab decode cache of this family."""
+    return cache_pspec_tree(cfg, cache_specs(cfg, n_slots, cache_T),
+                            mesh_axes)
+
+
+def param_pspecs(params, mesh_axes) -> dict:
+    """Serve-recipe spec tree of the model params (weight-stationary
+    tensor parallelism: last dims over "model")."""
+    from repro_torch.distributed import sharding
+    return sharding.param_specs(params, mesh_axes)

@@ -206,15 +206,16 @@ def paged_verify_attention(q, k_pages, v_pages, block_tables, cache_len, *,
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, cache_len, *,
                            k_scale=None, v_scale=None,
-                           backend: str = "auto") -> torch.Tensor:
+                           backend: str = "auto", mesh=None) -> torch.Tensor:
     """q (B,1,H,D) against block-paged K/V (N, bs, KH, D) through per-slot
     block tables (B, P); positions <= cache_len valid, exactly as
     :func:`decode_attention`.  Dispatches to the paged-attention CUDA kernel
-    or its plain version per ``backend`` (the config's matmul backend)."""
+    or its plain version per ``backend`` (the config's matmul backend),
+    split over ``mesh``'s shards when one is given."""
     from repro_torch.kernels.paged_attention.ops import paged_attention
     out = paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
                           block_tables, cache_len, k_scale_pages=k_scale,
-                          v_scale_pages=v_scale, backend=backend)
+                          v_scale_pages=v_scale, backend=backend, mesh=mesh)
     return out[:, None]
 
 

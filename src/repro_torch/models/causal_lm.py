@@ -249,6 +249,7 @@ def _paged_fns(cfg, batch):
     past a slot's table span are redirected to the trash block (speculative
     overhang lands nowhere); the S = 1 attend dispatches to the
     paged-attention kernel or its plain version per ``cfg.matmul_backend``,
+    split over the batch's ``mesh`` (the mesh executor's) when it has one;
     S > 1 takes the dense-gather verify formulation."""
     tables = batch["block_tables"]
     dev = tables.device
@@ -271,7 +272,7 @@ def _paged_fns(cfg, batch):
         if S == 1:
             return attention.paged_decode_attention(
                 q, kc, vc, tables, lens32, k_scale=ksc, v_scale=vsc,
-                backend=cfg.matmul_backend)
+                backend=cfg.matmul_backend, mesh=batch.get("mesh"))
         return attention.paged_verify_attention(
             q, kc, vc, tables, cache_len, k_scale=ksc, v_scale=vsc)
 

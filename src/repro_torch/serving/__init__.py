@@ -1,7 +1,8 @@
 """Quasi-synchronous serving subsystem, slab and paged slices, speculative
 decoding and chunked prefill, the telemetry sinks, the hardware-cost
 probe, fault injection with its recovery ladder, and the HTTP/SSE front
-door with its multi-replica router (port of ``repro/serving``): slots ~
+door with its multi-replica router, and mesh (tensor-parallel) serving
+(port of ``repro/serving``): slots ~
 synchronization groups, the admission queue ~ operand queues, and the
 scheduler's lead window ~ the inter-group elasticity parameter E."""
 
@@ -12,7 +13,8 @@ from repro_torch.serving.cache_manager import (BaseCacheManager, CacheManager,
 from repro_torch.serving.engine import (GenerationResult, RequestResult,
                                         ServeConfig, ServeLoop, ServeReport,
                                         ServingEngine)
-from repro_torch.serving.executor import SingleDeviceExecutor, make_executor
+from repro_torch.serving.executor import (MeshExecutor, SingleDeviceExecutor,
+                                          make_executor, make_serving_mesh)
 from repro_torch.serving.faults import (NULL_INJECTOR, DeviceOOM,
                                         DrafterFault, FaultInjector,
                                         InjectedFault, StepFault,
@@ -35,7 +37,8 @@ from repro_torch.serving.telemetry import (SCHEMA_VERSION, MetricsLogger,
 __all__ = [
     "BaseCacheManager", "BlockPool", "CacheManager", "DeviceOOM", "Drafter",
     "DrafterFault", "FaultInjector", "FrontDoor", "FrontDoorClient",
-    "FrontDoorServer", "GenerationResult", "InjectedFault", "MetricsLogger",
+    "FrontDoorServer", "GenerationResult", "InjectedFault", "MeshExecutor",
+    "MetricsLogger",
     "ModelDrafter", "NULL_INJECTOR", "NULL_PROBE", "NoFreeBlocks",
     "PROBE_METHODS", "PagedCacheManager", "PromptLookupDrafter",
     "QuasiSyncScheduler", "Replica", "Request", "RequestQueue",
@@ -44,6 +47,6 @@ __all__ = [
     "ServingEngine", "SingleDeviceExecutor", "SparsityProbe", "StepFault",
     "StepTimeout", "StreamSummary", "TRASH_BLOCK", "Telemetry", "Tracer",
     "TransientStepFault", "make_cache_manager", "make_drafter",
-    "make_executor", "percentiles", "probe_supported", "read_jsonl",
+    "make_executor", "make_serving_mesh", "percentiles", "probe_supported", "read_jsonl",
     "reduce_stream",
 ]

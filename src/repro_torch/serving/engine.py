@@ -62,8 +62,11 @@ holds for the rest of its serve alone: the loop takes a copy of the
 executor on the plain backend, and the engine's executor, with every later
 serve of the engine, keeps the engine's backend.
 
-Mesh serving is not ported yet, and refused with ``NotImplementedError``
-when asked for.
+Mesh serving: ``ServeConfig.mesh_shape`` builds a ``MeshExecutor`` over
+that many CUDA devices; a mesh over other devices (several shards on one
+card, or the CPU) comes in as an injected ``executor=``.  The host loop is
+the same for both executors, and the report and the ``run`` record carry
+the executor's mesh shape.
 """
 
 from __future__ import annotations
@@ -164,8 +167,8 @@ class ServeConfig:
     # before the serve's kernels move to their plain versions (0 disables
     # it; a real kernel fault raises instead)
     kernel_fault_limit: int = 2
-    # mesh serving is not ported yet: anything but None raises
-    # NotImplementedError when the engine is built
+    # (data, model) mesh shape for tensor-parallel serving over the first
+    # prod(mesh_shape) CUDA devices; None = one device
     mesh_shape: Optional[Tuple[int, int]] = None
 
 
@@ -183,16 +186,6 @@ def check_family(arch_cfg, serve_cfg: ServeConfig) -> None:
             f"family {arch_cfg.family!r} has no multi-token verify path: "
             f"chunked prefill feeds prompt chunks through verify_step; "
             f"serve with prefill_chunk=None")
-
-
-def check_ported(serve_cfg: ServeConfig) -> None:
-    """Refuse every ServeConfig feature the port does not implement yet."""
-    unported = []
-    if serve_cfg.mesh_shape is not None:
-        unported.append("mesh_shape")
-    if unported:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(unported)}")
 
 
 def tokens_per_second(n_tokens: int, decode_s: float, prefill_s: float = 0.0,
@@ -308,7 +301,6 @@ class ServeLoop:
         self.engine = engine
         self.executor: SingleDeviceExecutor = engine.executor
         self.serve_cfg = engine.serve_cfg
-        check_ported(self.serve_cfg)
         self.tel: Telemetry = (self.serve_cfg.telemetry
                                if self.serve_cfg.telemetry is not None
                                else Telemetry())
@@ -448,7 +440,8 @@ class ServeLoop:
                    n_slots=int(n_slots), cache_T=int(self.cache_T),
                    draft=str(self.serve_cfg.draft),
                    temperature=float(self.serve_cfg.temperature),
-                   mesh_shape=None,
+                   mesh_shape=(None if self.executor.mesh is None else
+                               list(self.executor.mesh.devices.shape)),
                    block_size=int(self.serve_cfg.block_size),
                    probe_every=int(self.probe.probe_every))
 
@@ -1533,6 +1526,8 @@ class ServeLoop:
             cow_blocks=s.cow_blocks,
             peak_blocks_in_use=s.peak_blocks_in_use,
             peak_active_slots=s.peak_active_slots,
+            mesh_shape=(None if self.executor.mesh is None
+                        else tuple(self.executor.mesh.devices.shape)),
             draft=self.serve_cfg.draft,
             drafted_tokens=s.drafted_tokens,
             accepted_tokens=s.accepted_tokens,
@@ -1564,11 +1559,11 @@ class ServingEngine:
         to int8 once, here (already-int8 weights pass through).
         ``draft_cfg``/``draft_params``: a same-family draft model for
         ``ServeConfig.draft == "model"``, run by a draft executor on the
-        engine's device."""
+        engine's device, over the target executor's mesh when it has
+        one."""
         self.cfg = arch_cfg
         self.serve_cfg = ServeConfig() if serve_cfg is None else serve_cfg
         check_family(arch_cfg, self.serve_cfg)
-        check_ported(self.serve_cfg)
         if executor is None:
             device = resolve_device(device)
             if arch_cfg.matmul_mode in ("bp_exact", "bp_approx"):
@@ -1588,7 +1583,8 @@ class ServingEngine:
                 with torch.no_grad():
                     draft_params = quantize_dense_params(draft_params)
             self.draft_executor = make_executor(draft_cfg, draft_params,
-                                                device=self.device)
+                                                device=self.device,
+                                                mesh=executor.mesh)
         self._deployment_cache: Dict[int, Optional[dict]] = {}
         self._weight_profile: Optional[dict] = None
         if (self.serve_cfg.probe is not None and self.serve_cfg.probe.enabled

@@ -1,5 +1,6 @@
-"""Serving execution layer, single device (port of
-``repro/serving/executor.py::SingleDeviceExecutor``).
+"""Serving execution layer (port of ``repro/serving/executor.py``): one
+device (``SingleDeviceExecutor``) or a tensor-parallel mesh
+(``MeshExecutor``).
 
 The engine is host-side orchestration; everything device-shaped lives
 here: placing inputs on the device, running the model entry points with
@@ -16,8 +17,19 @@ state in place (``rwkv_model.forward``) and ignores ``cache_len``, which
 the decode functions below pass for every family.
 
 The matmul backend is the config's ``matmul_backend`` (``auto``: the CUDA
-kernel on the GPU, the plain version on the CPU).  The mesh executor is not
-ported yet.
+kernel on the GPU, the plain version on the CPU).
+
+The mesh executor has one controller, as the reference's has: the host
+loop is the engine's, and the executor owns placement.  Its quantized
+weights are cut over the mesh's "model" shards once, at placement
+(``bitparticle_matmul.ops.place_weight``); each BitParticle matmul then
+launches once per shard and each paged decode attention once per split-KV
+shard (``paged_attention.ops``), and the results meet on the mesh's home
+device.  Activations, caches, embeddings, norms, the unembedding and every
+op without a kernel stay whole on that device, which is the reference's
+replicated layout (its slab cache's sequence split over "model" is not
+mirrored: the results are the same).  Every shard lies on one device (see
+``launch/mesh.py``).
 
 Fault injection: a serve loop attaches its ``FaultInjector``
 (:meth:`set_faults`); the prefill checks the ``prefill`` site, the decode
@@ -40,12 +52,14 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.bitparticle_matmul.ops import place_weight
+from repro_torch.launch.mesh import Mesh, make_local_mesh
 from repro_torch.models import api
 from repro_torch.serving.faults import NULL_INJECTOR
 from repro_torch.serving.telemetry import NULL_TELEMETRY
@@ -88,6 +102,9 @@ def sample_tokens(logits: torch.Tensor, temperature: float, seeds=None
 
 class SingleDeviceExecutor:
     """Runs the model on one device (default the GPU)."""
+
+    #: the mesh the executor shards over (None: one device)
+    mesh: Optional[Mesh] = None
 
     def __init__(self, cfg, params=None, *, device="cuda"):
         self.cfg = cfg
@@ -148,6 +165,8 @@ class SingleDeviceExecutor:
              "cache": cache}
         if paged:
             b["block_tables"] = step["block_tables"]
+        if self.mesh is not None:
+            b["mesh"] = self.mesh
         return b
 
     def _poison(self, logits: torch.Tensor, step) -> torch.Tensor:
@@ -304,9 +323,58 @@ class SingleDeviceExecutor:
         return pages
 
 
-def make_executor(cfg, params=None, *, device="cuda",
-                  mesh_shape=None) -> SingleDeviceExecutor:
-    if mesh_shape is not None:
-        raise NotImplementedError("mesh (tensor-parallel) serving is not "
-                                  "ported yet")
+def place_params(params, mesh: Mesh):
+    """The params for ``mesh``: every quantized dense weight (an int8 "w"
+    with its "w_scale") cut into a ``MeshWeight``, every other leaf whole
+    on the mesh's home device."""
+    def rec(node):
+        if not isinstance(node, dict):
+            return (node.to(mesh.home) if isinstance(node, torch.Tensor)
+                    else node)
+        out = {k: rec(v) for k, v in node.items()}
+        w = out.get("w")
+        if (isinstance(w, torch.Tensor) and w.dtype == torch.int8
+                and w.ndim >= 2):
+            out["w"] = place_weight(w, out["w_scale"], mesh)
+        return out
+
+    return rec(params)
+
+
+class MeshExecutor(SingleDeviceExecutor):
+    """Tensor-parallel serving over a ``("data", "model")`` mesh, one
+    controller (see the module's docstring).  ``params`` is the whole
+    tree, as the engine holds it; the entry points run the placed one."""
+
+    def __init__(self, cfg, params=None, *, mesh: Mesh):
+        super().__init__(cfg, None, device=mesh.home)
+        self.mesh = mesh
+        self._whole = params
+        if params is not None:
+            with torch.no_grad():
+                self._params = place_params(params, mesh)
+
+    @property
+    def params(self):
+        return self._whole
+
+
+def make_serving_mesh(shape: Sequence[int], devices=None) -> Mesh:
+    """A ``(data, model)`` mesh over ``devices`` (default: the first
+    ``prod(shape)`` CUDA devices; see ``launch.mesh.make_local_mesh``)."""
+    shape = tuple(int(d) for d in shape)
+    if len(shape) != 2:
+        raise ValueError(f"mesh shape must be (data, model), got {shape!r}")
+    return make_local_mesh(*shape, devices=devices)
+
+
+def make_executor(cfg, params=None, *, mesh: Optional[Mesh] = None,
+                  mesh_shape: Optional[Tuple[int, int]] = None,
+                  device="cuda") -> SingleDeviceExecutor:
+    """The executor ``mesh`` / ``mesh_shape`` select (a mesh over the
+    default CUDA devices for ``mesh_shape``), else one on ``device``."""
+    if mesh is None and mesh_shape is not None:
+        mesh = make_serving_mesh(mesh_shape)
+    if mesh is not None:
+        return MeshExecutor(cfg, params, mesh=mesh)
     return SingleDeviceExecutor(cfg, params, device=device)

@@ -13,7 +13,8 @@ variable per-unit work, one level up, absorbed by the per-slot
   * :class:`ModelDrafter`: a same-family draft model (its own config and
     params) runs K+1 greedy one-token decode steps over its OWN
     slot-aligned slab cache, batched across slots, through a draft
-    :class:`~repro_torch.serving.executor.SingleDeviceExecutor`.
+    executor that the engine builds over the target's mesh where it has
+    one, so drafting composes with mesh serving.
 
 With greedy decoding the accept rule commits exactly the token stream the
 non-speculative engine would emit, so speculation changes step counts,

@@ -6,11 +6,11 @@ refuses what it does not implement yet.
     ``chip_smoke.py``) names either in an import statement;
   * the entry points default to ``device="cuda"`` and raise where CUDA is
     absent, instead of running on the CPU unasked;
-  * every ``ServeConfig`` feature that is not ported (mesh serving) raises
-    ``NotImplementedError`` when the engine is built, and what is ported
-    (the paged store, speculative decoding, chunked prefill, the sparsity
-    probe, the telemetry sinks, fault injection) builds and serves on the
-    CPU;
+  * every ``ServeConfig`` feature (the paged store, speculative decoding,
+    chunked prefill, the sparsity probe, the telemetry sinks, fault
+    injection) builds and serves on the CPU, but a ``mesh_shape``, whose
+    default shards are CUDA devices: without a GPU the engine refuses it
+    instead of running the mesh on the CPU;
   * the kernel wrappers refuse what their kernels do not take instead of
     falling back;
   * ``chip_smoke.py`` exits nonzero and prints no result without a GPU or
@@ -140,7 +140,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     ("draft", "prompt_lookup", "serves"),
     ("draft", "model", "needs a draft model"),
     ("prefill_chunk", 16, "serves"),
-    ("mesh_shape", (1, 2), "not ported"),
+    ("mesh_shape", (1, 2), "needs 2 CUDA devices"),
     ("probe", serving.SparsityProbe(probe_every=1, n_mc=2000), "serves"),
     ("faults", serving.FaultInjector(schedule=[("step", 0)]), "serves"),
 ])
@@ -148,8 +148,10 @@ def test_serve_features_build_or_raise(field, value, outcome):
     cfg = _small_cfg(matmul_mode="bp_exact", kv_cache_int8=True)
     params = api.init(cfg, device="cpu")
     scfg = serving.ServeConfig(max_new_tokens=3, **{field: value})
-    if outcome == "not ported":
-        with pytest.raises(NotImplementedError, match=outcome):
+    if field == "mesh_shape":
+        if torch.cuda.is_available():
+            pytest.skip("checks the behaviour on a machine without CUDA")
+        with pytest.raises(ValueError, match=outcome):
             serving.ServingEngine(cfg, params, scfg, device="cpu")
         return
     engine = serving.ServingEngine(cfg, params, scfg, device="cpu")
