@@ -20,7 +20,8 @@ are missing.  Phases, one JSON line each:
                decode GEMV at qwen2-1.5b's and rwkv6-7b's projections and
                lm_head (M 1, 4, 8) and on its prefill tile kernel at both
                models' projections (M 9 to 2048, the verify steps' 20 and
-               256 among them), the reference's ragged
+               256 among them) and qwen2-1.5b's at the train phase's M
+               8192, the reference's ragged
                shapes and ragged prefill ones (K % 16 != 0, N 17 and 260),
                every projection of moonshot-v1-16b-a3b, granite-moe-1b-a400m,
                qwen2-7b, phi3-medium-14b and granite-34b (their routers and
@@ -65,9 +66,10 @@ are missing.  Phases, one JSON line each:
                projection of the three last families at M 4 and 128 (beside
                ``_int_mm`` at 128), and one qwen2-1.5b
                layer's seven projections at the verify steps' rows (M 20
-               and 256) beside the same chain of ``torch._int_mm`` calls
-               in both weight layouts; WKV6 at rwkv6-7b's
-               prefill shapes with its plan and achieved HBM rate; and the
+               and 256) and the train phase's (M 8192) beside the same
+               chain of ``torch._int_mm`` calls in both weight layouts;
+               WKV6 at rwkv6-7b's prefill shapes with its plan and
+               achieved HBM rate; and the
                time the same harness gives the smallest kernel
                (``event_floor_ms``);
   serve        the first main path: ``ServingEngine.serve()`` on
@@ -177,8 +179,10 @@ are missing.  Phases, one JSON line each:
                p50/p90, decode tokens/s beside the single-device serve's,
                K1 launches per shard and peak memory;
   serve_rwkv   the third main path, after the qwen2 weights are freed:
-               full-width, full-depth rwkv6-7b (random weights from a seed)
-               in bp_exact on the slab store, greedy; prompts of 64-256
+               full-width rwkv6-7b cut to 12 of its 32 layers
+               (``RWKV_SERVE_LAYERS``, for the 1200 s limit; random weights
+               from a seed) in bp_exact on the slab store, greedy; prompts
+               of 64-256
                tokens (the WKV6 kernel) and one of 100 (the step
                recurrence).  The matmul must launch 7 times per layer plus
                once for the lm_head per forward, the WKV6 kernel once per
@@ -238,9 +242,9 @@ are missing.  Phases, one JSON line each:
                pair shares prefix blocks (1-9); a ``generate()`` on three
                unequal M-RoPE rows (the image on an 8 x 16 grid) runs
                ``mrope_angles`` on the card, kernel against plain;
-  serve_hybrid full-width, full-depth zamba2-2.7b (54 Mamba-2 layers, d
-               2560, SSM state 64, a shared attention + GELU block every 6
-               layers, vocab 32,000) in bp_exact on the slab store; prompts
+  serve_hybrid full-width zamba2-2.7b cut to 24 of its 54 Mamba-2 layers
+               (4 of 9 super-blocks; d 2560, SSM state 64, a shared
+               attention + GELU block every 6 layers, vocab 32,000) in bp_exact on the slab store; prompts
                of 64-256 tokens (the chunked SSD) and of 100 and 77 (the
                step recurrence).  K1 2 per Mamba layer and 6 per shared
                block per forward plus the lm head, exactly; tokens equal
@@ -259,7 +263,35 @@ are missing.  Phases, one JSON line each:
                peak memory, step p50/p90, decode tokens/s, TTFT, and a
                profiled one-request serve's device time per decode step
                and idle share; each engine and model is freed before the
-               next.
+               next;
+  train        the training path, after every serve: full-width,
+               full-depth qwen2-1.5b (random weights from a seed), the
+               repo's synthetic Zipf data at 8 sequences of 1024 tokens a
+               step.  (a) qat: ``make_train_step`` for 8 steps at
+               grad_accum 2 (peak lr 1e-3, warmup 2, cosine over 8) on
+               the ``PrefetchingLoader``'s batches; every loss finite,
+               every step committed, step 8's loss below step 1's, K1
+               never launched; step wall p50/p90, tokens/s (every token
+               over the summed step walls, and at the p50 wall), peak
+               memory.  Before it, the resume check on the same width cut
+               to 2 layers (the full state's 21.6 GB took 50-55 s to
+               write and read): a ``Trainer`` for 4 steps, saved at step 4
+               (keep 1, under build/, deleted after), then a fresh
+               ``Trainer`` that resumes there (every leaf of params and
+               optimizer state bit-equal to the saved one) and runs to 8,
+               every loss finite and every step committed; the
+               checkpoint's write and read seconds and GB/s.  (b) bp_exact: two ``make_train_step``
+               steps at grad_accum 1 (K1's tiles at M 8192), after one
+               step from the same params and batch on the plain versions
+               (rejected on purpose, so it leaves the state as it was):
+               K1 launches exactly 7 per checkpointed layer run (a forward
+               and a recomputation per layer and step, counted), losses
+               within 1e-3 relative and grad norms within 1e-2, and every
+               dense weight's Adam moments exactly zero after both steps
+               (the reference's STE gives them no gradient).  (c)
+               bp_approx: one step, finite, K1 exact.  (d) a profiled
+               step of qat, then one of bp_exact: device busy and idle,
+               the top kernels, K1's share of device time.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits 1.
@@ -280,6 +312,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -334,6 +367,9 @@ PREFILL_CHECK_M = (9, 16, 17, 20, 64, 100, 256, 512, 2048)
 # rows of the verify steps' projections: 4 slots x (K + 1 = 5) positions
 # under speculation, 4 slots x a 64-token chunk under chunked prefill
 VERIFY_M = (20, 256)
+#: the train phase's rows per projection call in bp_* modes: 8 sequences
+#: of 1024 tokens in one micro-batch
+TRAIN_M = 8192
 MODES = (("exact", False), ("approx", True))
 BF16_OPS_PER_S = 989e12
 # the tensor cores' dense TF32 rate
@@ -709,6 +745,8 @@ def check_bp_matmul(torch):
                 for k, n in projection_kn(get_arch(name))
                 for m in NEW_CHECK_M]
     shapes += further
+    # the train phase's bp_* steps: qwen2-1.5b's projections at M 8192
+    shapes += [(TRAIN_M, k, n) for k, n in QWEN_KN]
     shapes += list(RAGGED_MKN)
     # A one byte off 16-byte alignment (K a multiple of 16): the kernels'
     # byte loads
@@ -1292,6 +1330,7 @@ def phase_kernel_time(torch, gpu, flush):
           "event_floor_ms": floor, "rows": new_rows})
     verify_rows = [verify_layer_row(torch, flush, gen, m)
                    for m in VERIFY_M]
+    train_row = verify_layer_row(torch, flush, gen, TRAIN_M)
     ops.reset_launches()
     emit({"phase": "kernel_time", "gpu": gpu, "kernel": "bp_matmul",
           "route": "verify tiles (M > 8)",
@@ -1301,6 +1340,14 @@ def phase_kernel_time(torch, gpu, flush):
           "library": "the same chain of torch._int_mm calls in each weight "
                      "layout; library_ms is the faster",
           "event_floor_ms": floor, "rows": verify_rows})
+    emit({"phase": "kernel_time", "gpu": gpu, "kernel": "bp_matmul",
+          "route": "train tiles (M > 8)",
+          "shape": "one qwen2-1.5b layer's 7 projections, exact mode, at "
+                   "the train phase's bp_* rows: M 8192 (8 sequences of "
+                   "1024 tokens)",
+          "library": "the same chain of torch._int_mm calls in each weight "
+                     "layout; library_ms is the faster",
+          "event_floor_ms": floor, "rows": [train_row]})
     pa_rows = [time_paged_case(torch, flush, gen, B, [L - 1] * B)
                for B in (4, 32) for L in (128, 512, 2048, 8192)]
     emit({"phase": "kernel_time", "gpu": gpu, "kernel": "paged_attention",
@@ -1318,8 +1365,8 @@ def phase_kernel_time(torch, gpu, flush):
                    "outputs)",
           "library": "none: no single PyTorch call computes WKV6",
           "rows": wkv_rows})
-    return (rows + tile_rows + new_rows + verify_rows + pa_rows + wkv_rows,
-            verify_rows)
+    return (rows + tile_rows + new_rows + verify_rows + [train_row]
+            + pa_rows + wkv_rows, verify_rows, train_row)
 
 
 def verify_layer_row(torch, flush, gen, m):
@@ -3263,15 +3310,23 @@ def state_layer_summary(torch, flush, shape, launches):
                      f"shards and the merge"}
 
 
+#: rwkv6-7b's layers in ``serve_rwkv``: 12 of its 32, for the script's
+#: 1200 s limit on a host ~1.5 times slower than the usual one (the width
+#: is the model's)
+RWKV_SERVE_LAYERS = 12
+
+
 def build_rwkv(torch):
-    """Full-width, full-depth rwkv6-7b in bp_exact: random weights from
-    seed 0, every dense weight quantized to int8 once.  Peak device memory
-    of the initialisation and quantization is measured on its own."""
+    """Full-width rwkv6-7b in bp_exact, cut to ``RWKV_SERVE_LAYERS``
+    layers: random weights from seed 0, every dense weight quantized to
+    int8 once.  Peak device memory of the initialisation and quantization
+    is measured on its own."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models import api
     from repro_torch.models.layers import quantize_dense_params
 
-    cfg = get_arch("rwkv6-7b").replace(matmul_mode="bp_exact")
+    cfg = get_arch("rwkv6-7b").replace(matmul_mode="bp_exact",
+                                       num_layers=RWKV_SERVE_LAYERS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3427,7 +3482,7 @@ def phase_serve_rwkv(torch, gpu, model, n_requests=8, n_slots=4,
                 "wkv6": L * len(eligible), "paged_attention": 0}
 
     # -- the model's float32 noise floor.  Random-init rwkv6-7b in bp_exact
-    # carries a float32 rounding difference through 32 layers of bf16
+    # carries a float32 rounding difference through its layers of bf16
     # rounding and int8 activation quantization into logit differences of
     # tenths (two plain evaluations included; the reference amplifies as
     # much, tests/test_torch_rwkv_depth.py), so a stream may flip where
@@ -4121,9 +4176,12 @@ def _forward_routes(cfg, stream):
     return want, total, common
 
 
+#: ``layers`` cuts a depth for the script's time limit: zamba2-2.7b runs
+#: 24 of its 54 layers (4 of its 9 super-blocks)
 FAMILY_SERVES = {
     "qwen2-vl-7b": {"phase": "serve_vlm", "backend": "paged"},
-    "zamba2-2.7b": {"phase": "serve_hybrid", "backend": "slab"},
+    "zamba2-2.7b": {"phase": "serve_hybrid", "backend": "slab",
+                    "layers": 24},
     "seamless-m4t-medium": {"phase": "serve_audio", "backend": "slab"},
 }
 
@@ -4281,7 +4339,7 @@ def phase_serve_family(torch, gpu, model, paged, n_slots=4, lead_window=4,
                       int(loop.cm.cache["cross_k"].shape[2])}
 
     # -- a profiled one-request serve (4 new tokens: the profiler's
-    # post-processing grows with the kernels, ~0.6 ms each); the decode
+    # post-processing grows with the kernels); the decode
     # steps are annotated, so their device time stands apart
     profile = _profile_serve(
         torch, engine, _copies(serving, prompts[:1], max_new_tokens=4),
@@ -4396,7 +4454,7 @@ def phase_serve_families(torch, gpu, paged):
     import gc
     records, launches, shapes = {}, {}, {}
     for name, spec in FAMILY_SERVES.items():
-        model = build_full(torch, name)
+        model = build_full(torch, name, spec.get("layers"))
         try:
             ph = spec["phase"]
             records[ph], launches[ph], shapes[ph] = phase_serve_family(
@@ -4434,6 +4492,317 @@ def wkv6_summary(torch, flush, gpu, shape, launches):
 
 
 #: device-kernel name fragments of each of the port's CUDA kernels
+# ---------------------------------------------------------------------------
+# train: the training path (qat learns; bp_exact / bp_approx run K1)
+# ---------------------------------------------------------------------------
+
+#: the train phase's data: the repo's synthetic Zipf pipeline at qwen2's
+#: vocabulary, 8 sequences of 1024 tokens a step
+TRAIN_DATA = dict(vocab_size=151936, seq_len=1024, global_batch=8)
+TRAIN_STEPS = 8
+#: the resume check's first trainer stops (and saves) here; a fresh one
+#: resumes there
+TRAIN_SAVE_AT = 4
+#: the resume check runs qwen2-1.5b's width at this depth: the full
+#: model's state (21.6 GB) took 50-55 s to write and read back on a
+#: checkout's disk, past the issue's 60 s mark with any slower disk
+TRAIN_RESUME_LAYERS = 2
+#: dense projections of one qwen2-1.5b layer (q, k, v, o, gate, up, down)
+QWEN_LAYER_PROJ = 7
+
+
+def _state_bytes(tree):
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _same_bits(torch, a, b):
+    """Bit-for-bit equality of two tensors of one dtype and shape."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def _percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def _qat_config():
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_loop import TrainConfig
+    return TrainConfig(total_steps=TRAIN_STEPS, grad_accum=2,
+                       ckpt_every=10 ** 9, ckpt_keep=1, log_every=1,
+                       optimizer=opt_lib.OptimizerConfig(
+                           peak_lr=1e-3, warmup_steps=2,
+                           total_steps=TRAIN_STEPS))
+
+
+def _train_qat(torch, cfg, data):
+    """Part (a): qat learns.  ``make_train_step`` for ``TRAIN_STEPS``
+    steps from ``api.init``'s seed-0 params, the batches from the
+    ``PrefetchingLoader`` a ``Trainer`` reads, each step's loss read on
+    the host as the ``Trainer`` reads it.  Returns (record, the trained
+    params)."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import PrefetchingLoader
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_loop import batch_to_device, make_train_step
+    step_fn = make_train_step(cfg, _qat_config())
+    reset_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(cfg, seed=0, device="cuda")
+    opt = opt_lib.init_state(params)
+    err = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = _state_bytes({"params": params, "opt": opt}) / 1e9
+    metrics, walls = [], []
+    loader = PrefetchingLoader(data, start_step=0, q_depth=2)
+    try:
+        for step in range(1, TRAIN_STEPS + 1):
+            batch = batch_to_device(next(loader), "cuda")
+            t0 = time.perf_counter()
+            params, opt, err, m = step_fn(params, opt, err, batch, 0.0)
+            m = {k: float(v) for k, v in m.items() if np.ndim(v) == 0}
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            metrics.append({"step": step, **m})
+    finally:
+        loader.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = launch_counts()
+    losses = [m["loss"] for m in metrics]
+    check(all(math.isfinite(x) for x in losses), f"qat losses {losses}")
+    check(all(m["committed"] == 1.0 for m in metrics),
+          f"a qat step was rejected: {metrics}")
+    check(losses[-1] < losses[0], f"qat loss did not fall: {losses}")
+    check(launches["bp_matmul"] == 0,
+          f"qat launched K1 {launches['bp_matmul']} times")
+    tokens = data.global_batch * data.seq_len
+    # the first step pays the process's warm-up (allocator, cuBLAS
+    # handles): reported apart from the steady steps' percentiles
+    steady = walls[1:]
+    p50 = _percentile(steady, 0.5)
+    del opt, err
+    torch.cuda.empty_cache()
+    return {"mode": "qat", "steps": TRAIN_STEPS, "grad_accum": 2,
+            "micro_batch_rows": tokens // 2, "losses": losses,
+            "lr": [m["lr"] for m in metrics],
+            "grad_norm": [m["grad_norm"] for m in metrics],
+            "committed": [m["committed"] for m in metrics],
+            "step_wall_s": walls, "first_step_s": walls[0],
+            "step_wall_p50_s": p50,
+            "step_wall_p90_s": _percentile(steady, 0.9),
+            "tokens_per_s": tokens * len(walls) / sum(walls),
+            "tokens_per_s_p50": tokens / p50, "peak_mem_gb": peak_gb,
+            "init_s": init_s, "state_gb": state_gb,
+            "launches": launches}, params
+
+
+def _train_resume(torch, cfg, data, ckpt_dir):
+    """Part (a), the resume: qwen2-1.5b's width cut to
+    ``TRAIN_RESUME_LAYERS`` layers in qat.  A ``Trainer`` for
+    ``TRAIN_SAVE_AT`` steps (saved at the end, keep 1), then a fresh
+    ``Trainer`` that resumes there, every leaf bit-equal to the saved
+    one, and runs to ``TRAIN_STEPS``."""
+    import dataclasses
+
+    from repro_torch.train.train_loop import Trainer
+    from repro_torch.tree import leaf_paths
+    cfg = cfg.replace(num_layers=TRAIN_RESUME_LAYERS)
+    tc = dataclasses.replace(_qat_config(), total_steps=TRAIN_SAVE_AT,
+                             ckpt_dir=str(ckpt_dir))
+    stamps, metrics = [], []
+
+    def on_metrics(step, m):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append({"step": step, **m})
+
+    first = Trainer(cfg, tc, data, init_seed=0, device="cuda")
+    state_gb = _state_bytes(first._state_tree()) / 1e9
+    first.run(on_metrics)
+    write_s = time.perf_counter() - stamps[-1]
+    check(first.ckpt.all_steps() == [TRAIN_SAVE_AT],
+          f"the first trainer's checkpoints: {first.ckpt.all_steps()}")
+    saved = [(path, t.detach().cpu())
+             for path, t in leaf_paths(first._state_tree())]
+    del first
+    torch.cuda.empty_cache()
+    second = Trainer(cfg, dataclasses.replace(tc, total_steps=TRAIN_STEPS),
+                     data, init_seed=1, device="cuda")
+    check(second.start_step == TRAIN_SAVE_AT,
+          f"resumed at step {second.start_step}, not {TRAIN_SAVE_AT}")
+    restored = leaf_paths(second._state_tree())
+    check([p for p, _ in restored] == [p for p, _ in saved],
+          "the restored state's leaves differ from the saved ones")
+    unequal = [p for (p, got), (_, want) in zip(restored, saved)
+               if not _same_bits(torch, got, want.to(got.device))]
+    check(not unequal, f"restored leaves differ from the saved ones: "
+                       f"{unequal[:5]}")
+    del saved
+    second.run(on_metrics)
+    read_s = second.resume_s
+    losses = [m["loss"] for m in metrics]
+    check([m["step"] for m in metrics] == list(range(1, TRAIN_STEPS + 1)),
+          f"resume check's steps {[m['step'] for m in metrics]}")
+    check(all(math.isfinite(x) for x in losses),
+          f"resume check's losses {losses}")
+    check(all(m["committed"] == 1.0 for m in metrics),
+          f"a resume check's step was rejected: {metrics}")
+    del second
+    torch.cuda.empty_cache()
+    return {"layers": TRAIN_RESUME_LAYERS, "save_at": TRAIN_SAVE_AT,
+            "steps": TRAIN_STEPS, "losses": losses,
+            "restored_bit_equal": True, "state_gb": state_gb,
+            "ckpt_write_s": write_s, "ckpt_write_gb_per_s": state_gb / write_s,
+            "ckpt_read_s": read_s, "ckpt_read_gb_per_s": state_gb / read_s}
+
+
+def phase_train(torch, gpu):
+    """The training path on full-width, full-depth qwen2-1.5b (module
+    docstring, ``train``)."""
+    import shutil
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import remat
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_loop import (TrainConfig, batch_to_device,
+                                              make_train_step)
+    from repro_torch.tree import leaf_paths
+    cfg = get_arch("qwen2-1.5b")
+    data = DataConfig(**TRAIN_DATA)
+    qat_cfg = cfg.replace(matmul_mode="qat")
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        resume = _train_resume(torch, qat_cfg, data, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    qat, params = _train_qat(torch, qat_cfg, data)
+    qat["resume"] = resume
+    emit({"phase": "train", "part": "qat", "gpu": gpu, **qat})
+
+    # (b) bp_exact: the same step function on K1 at M 8192, against a step
+    # on the plain versions from the same params and batch
+    batch = batch_to_device(make_batch(data, 100), "cuda")
+    tc = TrainConfig(total_steps=TRAIN_STEPS, grad_accum=1, optimizer=(
+        opt_lib.OptimizerConfig(peak_lr=1e-3, warmup_steps=2,
+                                total_steps=TRAIN_STEPS)))
+    opt = opt_lib.init_state(params)
+    err = torch.zeros(1, device="cuda")
+    rows = data.global_batch * data.seq_len
+    bp = cfg.replace(matmul_mode="bp_exact")
+    # the plain step first, rejected on purpose (a tiny median): it
+    # computes the loss and gradients and leaves the state as it was
+    reset_counts()
+    plain_step = make_train_step(bp.replace(matmul_backend="plain"), tc)
+    _, _, _, plain = plain_step(params, opt, err, batch, 1e-30)
+    torch.cuda.synchronize()
+    check(plain["committed"].item() == 0.0 and
+          launch_counts()["bp_matmul"] == 0,
+          "the plain-version step committed or launched K1")
+    step = make_train_step(bp, tc)
+    exact = {"mode": "bp_exact", "rows": rows, "steps": []}
+    for i in range(2):
+        reset_counts()
+        remat.reset_runs()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, err, m = step(params, opt, err, batch, 0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lc = launch_counts()
+        runs = remat.RUNS["body"]
+        exact["steps"].append({"loss": float(m["loss"]),
+                               "grad_norm": float(m["grad_norm"]),
+                               "committed": float(m["committed"]),
+                               "wall_s": wall, "layer_runs": runs,
+                               "launches": lc})
+        check(runs == 2 * cfg.num_layers,
+              f"bp_exact step {i + 1}: {runs} checkpointed layer runs, "
+              f"not {2 * cfg.num_layers} (a forward and a recomputation)")
+        check(lc["bp_matmul_tile"] == QWEN_LAYER_PROJ * runs
+              and lc["bp_matmul_gemv"] == 0,
+              f"bp_exact step {i + 1}: K1 launches {lc}, expected "
+              f"{QWEN_LAYER_PROJ} x {runs} tiles")
+        check(float(m["committed"]) == 1.0, "a bp_exact step was rejected")
+    k0 = exact["steps"][0]
+    exact["plain_loss"] = float(plain["loss"])
+    exact["plain_grad_norm"] = float(plain["grad_norm"])
+    exact["loss_rel_diff"] = abs(k0["loss"] - exact["plain_loss"]) / abs(
+        exact["plain_loss"])
+    exact["grad_norm_rel_diff"] = abs(
+        k0["grad_norm"] - exact["plain_grad_norm"]) / exact["plain_grad_norm"]
+    check(exact["loss_rel_diff"] <= 1e-3,
+          f"bp_exact loss: kernel {k0['loss']} vs plain "
+          f"{exact['plain_loss']}")
+    check(exact["grad_norm_rel_diff"] <= 1e-2,
+          f"bp_exact grad norm: kernel {k0['grad_norm']} vs plain "
+          f"{exact['plain_grad_norm']}")
+    # a zero gradient leaves Adam's moments exactly zero: every dense
+    # weight's, after two committed steps; the embedding's are not
+    moments = dict(leaf_paths({"m": opt["m"], "v": opt["v"]}))
+    dense = [p for p in moments if p.endswith("/w")]
+    check(len(dense) == 2 * QWEN_LAYER_PROJ and not any(
+        moments[p].any().item() for p in dense),
+          "a bp_exact dense weight got a nonzero gradient")
+    check(moments["m/embed/table"].any().item(),
+          "the embedding got no gradient in bp_exact")
+    exact["dense_weight_moments_zero"] = len(dense)
+    emit({"phase": "train", "part": "bp_exact", "gpu": gpu, **exact})
+
+    # (c) bp_approx: one step
+    reset_counts()
+    remat.reset_runs()
+    params, opt, err, m = make_train_step(
+        cfg.replace(matmul_mode="bp_approx"), tc)(params, opt, err, batch,
+                                                  0.0)
+    lc = launch_counts()
+    approx = {"mode": "bp_approx", "rows": rows, "loss": float(m["loss"]),
+              "grad_norm": float(m["grad_norm"]),
+              "layer_runs": remat.RUNS["body"], "launches": lc}
+    check(math.isfinite(approx["loss"]), f"bp_approx loss {approx['loss']}")
+    check(lc["bp_matmul_tile"] == QWEN_LAYER_PROJ * approx["layer_runs"]
+          == QWEN_LAYER_PROJ * 2 * cfg.num_layers,
+          f"bp_approx K1 launches {lc}")
+    emit({"phase": "train", "part": "bp_approx", "gpu": gpu, **approx})
+
+    # (d) a profiled step of qat, then one of bp_exact
+    from torch.profiler import ProfilerActivity, profile
+    profiles = {}
+    for mode in ("qat", "bp_exact"):
+        fn = make_train_step(cfg.replace(matmul_mode=mode), tc)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, err, m = fn(params, opt, err, batch, 0.0)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        prof_rec = profile_summary(prof, wall_ms, top=8)
+        busy = prof_rec["device_busy_ms"]
+        prof_rec["k1_share_of_device"] = (
+            (prof_rec["bp_matmul_gemv_device_ms"]
+             + prof_rec["bp_matmul_tile_device_ms"]) / busy if busy else None)
+        profiles[mode] = prof_rec
+    emit({"phase": "train", "part": "profile", "gpu": gpu,
+          "profiles": profiles})
+    launches = {"bp_matmul_tile": sum(s["launches"]["bp_matmul_tile"]
+                                      for s in exact["steps"])
+                + approx["launches"]["bp_matmul_tile"],
+                "bp_matmul_gemv": 0}
+    del params, opt, err, batch
+    torch.cuda.empty_cache()
+    return {"qat": qat, "bp_exact": exact, "bp_approx": approx,
+            "profile": profiles}, launches
+
+
 KERNEL_SYMBOLS = {"bp_matmul_gemv": ("bp_gemv",),
                   "bp_matmul_tile": ("bp_tile", "bp_wgmma"),
                   "paged_attention": ("paged_attention_kernel",),
@@ -4453,14 +4822,6 @@ def _profile_serve(torch, engine, requests, n_slots, cache_T, sched,
     ``annotated``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    def device_us(ev):
-        return getattr(ev, "self_device_time_total",
-                       getattr(ev, "self_cuda_time_total", 0.0))
-
-    def total_device_us(ev):
-        return getattr(ev, "device_time_total",
-                       getattr(ev, "cuda_time_total", 0.0))
-
     saved = [(mod, name, getattr(mod, name)) for mod, name in annotate]
     for mod, name, fn in saved:
         def wrapped(*a, _fn=fn, _name=name, **k):
@@ -4479,33 +4840,71 @@ def _profile_serve(torch, engine, requests, n_slots, cache_T, sched,
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    averages = prof.key_averages()
-    annotated = {e.key: {"count": e.count,
-                         "device_ms": total_device_us(e) / 1e3,
-                         "host_ms": e.cpu_time_total / 1e3}
-                 for e in averages
-                 if e.key in {name for _, name, _ in saved}
-                 and not str(getattr(e, "device_type", "")).endswith("CUDA")}
-    # (the annotations' device-side spans are not kernels)
-    kernels = [e for e in averages
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and device_us(e) > 0
-               and not any(e.key == name for _, name, _ in saved)]
-    busy_ms = sum(device_us(e) for e in kernels) / 1e3
-    n_kernels = sum(e.count for e in kernels)
-    ours = {name: sum(device_us(e) for e in kernels
-                      if any(sym in e.key for sym in syms)) / 1e3
-            for name, syms in KERNEL_SYMBOLS.items()}
-    top = sorted(kernels, key=device_us, reverse=True)[:6]
     return {"requests": len(requests), "decode_steps": rep.steps,
-            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            **profile_summary(prof, wall_ms, [name for _, name, _ in saved])}
+
+
+def profile_summary(prof, wall_ms, annotations=(), top=6):
+    """A ``torch.profiler`` window reduced to device-busy time against
+    ``wall_ms``, the number of kernels launched (every device event:
+    kernels, copies, fills), each of the port's kernels' device time, and
+    the ``top`` kernels by device time; ``annotations``:
+    ``record_function`` names whose calls, device time (of the kernels
+    launched inside, on the annotation's thread) and host time go in
+    ``annotated``.  It reads the profiler's raw events: its own event tree
+    (``key_averages``) took ~0.7 ms of host time per kernel launched, 32 s
+    for one 45,000-kernel window; ``summary_s`` is what this reduction
+    took."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    t0 = time.perf_counter()
+    names = set(annotations)
+    # host ops by correlation id: (thread, start), to place each kernel
+    # inside the annotation that launched it
+    ops, spans, device = {}, {n: [] for n in names}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if not e.is_async():
+                ops[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+                if e.name() in names:
+                    spans[e.name()].append((e.start_ns(), e.end_ns(),
+                                            e.start_thread_id()))
+        elif e.duration_ns() > 0 and e.name() not in names:
+            # (an annotation's device-side span is not a kernel)
+            device.append(e)
+    per_name = {}
+    for e in device:
+        c = per_name.setdefault(e.name(), [0, 0])
+        c[0] += 1
+        c[1] += e.duration_ns()
+    busy_ms = sum(ns for _, ns in per_name.values()) / 1e6
+    ours = {name: sum(ns for key, (_, ns) in per_name.items()
+                      if any(sym in key for sym in syms)) / 1e6
+            for name, syms in KERNEL_SYMBOLS.items()}
+    ranked = sorted(per_name.items(), key=lambda kv: kv[1][1],
+                    reverse=True)[:top]
+    annotated = {}
+    for name, sp in spans.items():
+        sp.sort()
+        starts = [a for a, _, _ in sp]
+        dev_ns = 0
+        for e in device:
+            thread, at = ops.get(e.linked_correlation_id(), (None, None))
+            i = -1 if at is None else bisect.bisect_right(starts, at) - 1
+            if i >= 0 and at <= sp[i][1] and thread == sp[i][2]:
+                dev_ns += e.duration_ns()
+        annotated[name] = {"count": len(sp), "device_ms": dev_ns / 1e6,
+                           "host_ms": sum(b - a for a, b, _ in sp) / 1e6}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
-            "kernels": n_kernels,
+            "kernels": sum(n for n, _ in per_name.values()),
             **{f"{name}_device_ms": ms for name, ms in ours.items()},
-            "top_kernels": [{"name": e.key[:60], "count": e.count,
-                             "device_ms": device_us(e) / 1e3}
-                            for e in top],
-            **({"annotated": annotated} if saved else {})}
+            "top_kernels": [{"name": key[:60], "count": n,
+                             "device_ms": ns / 1e6}
+                            for key, (n, ns) in ranked],
+            **({"annotated": annotated} if annotations else {}),
+            "summary_s": time.perf_counter() - t0}
 
 
 def _flip(torch, np, engine, prompt, serve_toks, gen_toks, cache_T, rid,
@@ -4860,7 +5259,7 @@ def main() -> int:
         phase_device(torch, gpu)
         phase_kernels(torch, gpu)
         flush = Flusher(torch)
-        timed, verify_rows = phase_kernel_time(torch, gpu, flush)
+        timed, verify_rows, train_row = phase_kernel_time(torch, gpu, flush)
         records.append({"kernel_time": timed})
         model = build_model(torch)
         serve, launches, serve_toks = phase_serve(torch, gpu, model)
@@ -4898,6 +5297,8 @@ def main() -> int:
         fam, fam_launches, fam_shapes = phase_serve_families(torch, gpu,
                                                              paged)
         records.extend({ph: rec} for ph, rec in fam.items())
+        train, train_launches = phase_train(torch, gpu)
+        records.append({"train": train})
         bp = decode_layer_summary(torch, flush, serve["n_slots"], launches)
         tile = prefill_layer_summary(
             torch, flush, launches["prefill_rows"],
@@ -4905,6 +5306,7 @@ def main() -> int:
             family_m={name: fam_launches[spec["phase"]]["prefill_rows"]
                       for name, spec in FAMILY_SERVES.items()})
         tile["qwen2_verify_layer"] = verify_rows
+        tile["qwen2_train_layer"] = train_row
         paths = {"serve": launches, "serve_paged": paged_launches,
                  "serve_spec": spec_launches,
                  "serve_chunked": chunked_launches,
@@ -4915,7 +5317,7 @@ def main() -> int:
                  "serve_rwkv": rwkv_launches,
                  "serve_moe": moe_launches["moonshot-v1-16b-a3b"],
                  "serve_moe_granite": moe_launches["granite-moe-1b-a400m"],
-                 **fam_launches}
+                 **fam_launches, "train": train_launches}
         pa = paged_layer_summary(
             torch, flush, paged_shape, paged_launches,
             {**moe_shapes, "qwen2-vl-7b": fam_shapes["serve_vlm"]})

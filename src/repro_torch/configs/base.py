@@ -17,7 +17,7 @@ import dataclasses
 import importlib
 from typing import Optional, Tuple
 
-from repro_torch.core.bp_matmul import MODES as MATMUL_MODES
+from repro_torch.core.bp_matmul import MODES as MATMUL_MODES, base_mode
 from repro_torch.kernels.bitparticle_matmul.ops import \
     BACKENDS as MATMUL_BACKENDS
 
@@ -70,7 +70,8 @@ class ArchConfig:
     encoder_layers: int = 0
     # VLM (M-RoPE)
     mrope_sections: Tuple[int, ...] = ()
-    # numerics: bf16 | bp_exact | bp_approx
+    # numerics: bf16 | qat | bp_exact | bp_approx (each may carry the
+    # '+q8gather' suffix: int8 weight gathers, see core/bp_matmul.py)
     matmul_mode: str = "bf16"
     # quantized-matmul backend (see kernels/bitparticle_matmul/ops.py)
     matmul_backend: str = "auto"
@@ -78,10 +79,10 @@ class ArchConfig:
     kv_cache_int8: bool = False
 
     def __post_init__(self):
-        if self.matmul_mode not in MATMUL_MODES:
+        if base_mode(self.matmul_mode) not in MATMUL_MODES:
             raise NotImplementedError(
                 f"matmul_mode {self.matmul_mode!r} is not ported; expected "
-                f"one of {MATMUL_MODES}")
+                f"one of {MATMUL_MODES}, optionally with '+q8gather'")
         if self.matmul_backend not in MATMUL_BACKENDS:
             raise ValueError(
                 f"unknown matmul_backend {self.matmul_backend!r}; expected "

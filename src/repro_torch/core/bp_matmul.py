@@ -4,6 +4,8 @@
 Modes:
 
   ``bf16``      plain mixed-precision matmul (the unquantized baseline).
+  ``qat``       quantization-aware training: fake-quant of both operands,
+                then a plain matmul (``dense_apply``).
   ``bp_exact``  W8A8 sign-magnitude int8 matmul; BitParticle's exact MAC is
                 bit-identical to an integer multiply.
   ``bp_approx`` the paper's approximate MAC (drops IR groups {0} and {1,4}),
@@ -27,7 +29,7 @@ import torch
 
 from repro_torch.core import quant
 
-MODES = ("bf16", "bp_exact", "bp_approx")
+MODES = ("bf16", "qat", "bp_exact", "bp_approx")
 
 
 def signed_low_particles(q: torch.Tensor):
@@ -68,9 +70,46 @@ def bp_matmul_int(a_q: torch.Tensor, w_q: torch.Tensor,
     raise ValueError(f"unknown integer mode: {mode}")
 
 
+class QuantizedMatmul(torch.autograd.Function):
+    """Dequantizing BitParticle matmul with the reference's straight-through
+    gradient: the backward treats the product as ``x @ (w * w_scale)``, so
+    ``gx = g @ (w * w_scale)^T`` in g's dtype, and the int8 weight and its
+    scale get zero (the reference's ``_qmm_bwd``).  That product is plain
+    PyTorch, as the reference computes it outside any kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w, w_scale, mode, backend):
+        from repro_torch.kernels.bitparticle_matmul.ops import (
+            MeshWeight, bp_matmul, bp_matmul_sharded)
+        x_scale = quant.compute_scale(x, axis=(-1,))   # (..., 1) per-row
+        x_q = quant.quantize(x, x_scale)
+        approx = mode == "bp_approx"
+        if isinstance(w, MeshWeight):
+            ctx.mesh = True
+            out = bp_matmul_sharded(x_q, w, x_scale, approx=approx,
+                                    backend=backend)
+        else:
+            ctx.mesh = False
+            ctx.save_for_backward(w, w_scale)
+            out = bp_matmul(x_q, w, x_scale, w_scale, approx=approx,
+                            backend=backend)
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.mesh:
+            raise NotImplementedError(
+                "the mesh-placed matmul has no backward: mesh weights serve")
+        w, w_scale = ctx.saved_tensors
+        gx = g @ (w.to(g.dtype) * w_scale.to(g.dtype)).t()
+        g_scale = (torch.zeros_like(w_scale) if ctx.needs_input_grad[2]
+                   else None)
+        return gx, None, g_scale, None, None
+
+
 def quantized_matmul(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                      mode: str, backend: str = "auto") -> torch.Tensor:
-    """Dequantizing BitParticle matmul (forward only).
+    """Dequantizing BitParticle matmul (:class:`QuantizedMatmul`).
 
     x: (..., K) float; w: (K, N) int8 (pre-quantized, per-channel w_scale
     (N,)).  Activations are quantized PER ROW in x's own dtype (one scale
@@ -79,28 +118,80 @@ def quantized_matmul(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     float32, cast to x.dtype.  A placed ``MeshWeight`` carries its own
     scale slices, and ``w_scale`` is then not read.  Returns (..., N) in
     x.dtype."""
-    from repro_torch.kernels.bitparticle_matmul.ops import (
-        MeshWeight, bp_matmul, bp_matmul_sharded)
-    x_scale = quant.compute_scale(x, axis=(-1,))   # (..., 1) per-row
-    x_q = quant.quantize(x, x_scale)
-    approx = mode == "bp_approx"
-    if isinstance(w, MeshWeight):
-        out = bp_matmul_sharded(x_q, w, x_scale, approx=approx,
-                                backend=backend)
-    else:
-        out = bp_matmul(x_q, w, x_scale, w_scale, approx=approx,
-                        backend=backend)
-    return out.to(x.dtype)
+    return QuantizedMatmul.apply(x, w, w_scale, mode, backend)
 
 
-def dense_apply(x: torch.Tensor, w_f: torch.Tensor,
-                mode: str) -> torch.Tensor:
-    """Dense layer forward on float weights: the ``bf16`` mode's plain
-    matmul.  The bp_* modes take int8 weights quantized once
-    (``models/layers.py::quantize_dense_params``); quantizing float weights
-    on every call, as training's fake-quant path does, is not ported."""
-    if mode != "bf16":
-        raise NotImplementedError(
-            f"matmul mode {mode!r} on float weights is not ported; quantize "
-            f"the weights first (quantize_dense_params)")
-    return x @ w_f
+class QuantizedGather(torch.autograd.Function):
+    """Per-channel int8 quantize -> replicate -> dequantize, with the
+    cotangent passed straight to the weight (the reference's
+    ``quantized_gather``: int8 on the FSDP gather's wire).  On one device
+    the replication is the identity."""
+
+    @staticmethod
+    def forward(ctx, w):
+        wf = w.to(torch.float32)
+        scale = quant.compute_scale(wf, axis=(0,))
+        return quant.dequantize(quant.quantize(wf, scale), scale).to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def quantized_gather(w: torch.Tensor) -> torch.Tensor:
+    return QuantizedGather.apply(w)
+
+
+GATHER_SUFFIX = "+q8gather"
+
+
+def base_mode(mode: str) -> str:
+    """``mode`` without the ``+q8gather`` suffix."""
+    return mode[:-len(GATHER_SUFFIX)] if mode.endswith(GATHER_SUFFIX) \
+        else mode
+
+
+def dense_apply(x: torch.Tensor, w_f: torch.Tensor, mode: str,
+                backend: str = "auto") -> torch.Tensor:
+    """Dense layer on float weights, mode-dependent (the reference's
+    ``dense_apply``):
+
+      ``bf16``      plain matmul;
+      ``qat``       fake-quant of both operands, the weight per output
+                    channel (scales over axis 0), the activation with ONE
+                    per-tensor scale, then a plain matmul; the gradient
+                    reaches the float weight through the STE;
+      ``bp_*``      the weight quantized per output channel on every call,
+                    made K-major, then :func:`quantized_matmul` (the kernel
+                    on CUDA tensors).  Its STE gives the int8 weight a zero
+                    gradient, so the float weight gets none: the weight is
+                    detached, and it receives an exactly-zero gradient as in
+                    the reference.
+
+    The ``+q8gather`` suffix first routes the weight through
+    :func:`quantized_gather`."""
+    from repro_torch.kernels.bitparticle_matmul.ops import kmajor
+    if mode.endswith(GATHER_SUFFIX):
+        w_f = quantized_gather(w_f)
+        mode = base_mode(mode)
+    if w_f.dtype == torch.int8:
+        raise ValueError("int8 weights must go through dense() with w_scale")
+    if mode == "bf16":
+        return x @ w_f
+    if mode == "qat":
+        # the scales' cotangents are zero (fake_quant's STE), so they are
+        # taken off the graph
+        wf = w_f.to(torch.float32)
+        w_fq = quant.fake_quant(
+            wf, quant.compute_scale(wf.detach(), axis=(0,))).to(x.dtype)
+        xf = x.to(torch.float32)
+        x_fq = quant.fake_quant(xf, quant.compute_scale(xf.detach())).to(
+            x.dtype)
+        return x_fq @ w_fq
+    if mode not in ("bp_exact", "bp_approx"):
+        raise ValueError(f"unknown matmul mode {mode!r}; expected one of "
+                         f"{MODES}")
+    w_q, w_scale = quant.quantize_per_channel(
+        w_f.detach().to(torch.float32), channel_axis=-1)
+    return quantized_matmul(x, kmajor(w_q), w_scale.reshape(-1), mode,
+                            backend)

@@ -6,6 +6,8 @@ clips symmetrically to +/-127.  Arithmetic stays in the input's dtype: for
 bf16 activations both the scale and the division ``x / scale`` are bf16
 operations, exactly as in the reference.  Dividing in float32 instead moves
 about 8% of the rounded int8 values by one on real activations.
+``fake_quant`` is the quantization-aware training pass: quantize-dequantize
+forward, straight-through backward.
 """
 
 from __future__ import annotations
@@ -41,3 +43,33 @@ def quantize_per_channel(x: torch.Tensor, channel_axis: int = -1):
     axes = tuple(i for i in range(x.ndim) if i != channel_axis % x.ndim)
     scale = compute_scale(x, axis=axes)
     return quantize(x, scale), scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def quantize_per_tensor(x: torch.Tensor):
+    scale = compute_scale(x, axis=None)
+    return quantize(x, scale), scale
+
+
+class FakeQuant(torch.autograd.Function):
+    """Quantize-dequantize with a straight-through gradient (the
+    reference's ``custom_vjp``): the gradient passes where ``|x| <= scale *
+    127`` and is zero outside the clip range; the scale gets none."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x.abs() <= scale * QMAX, scale)
+        return dequantize(quantize(x, scale), scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        inside, scale = ctx.saved_tensors
+        g_scale = torch.zeros_like(scale) if ctx.needs_input_grad[1] else None
+        return g * inside.to(g.dtype), g_scale
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return FakeQuant.apply(x, scale)

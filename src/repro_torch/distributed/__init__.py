@@ -1,2 +1,3 @@
 """Mesh serving's parameter partition specs and its cross-shard combines
-(``sharding.py``)."""
+(``sharding.py``), and the blockwise int8 gradient compression with error
+feedback (``compression.py``)."""

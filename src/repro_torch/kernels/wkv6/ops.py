@@ -12,7 +12,10 @@ as the other kernels':
 
 ``wkv6_rows`` checks device, dtype, shape and contiguity, allocates the
 outputs and the state workspace, launches on PyTorch's current stream and
-counts the call in :data:`LAUNCHES`.  One call is two CUDA kernels,
+counts the call in :data:`LAUNCHES`.  The kernel has no backward (nor has
+the reference's Pallas kernel): given inputs that need a gradient, every
+backend but ``plain`` raises a ``KernelInputError``, so a training forward
+takes the plain version only by naming it.  One call is two CUDA kernels,
 ``wkv6_state_kernel`` (the state chain, which writes the state in front of
 every chunk to the workspace) and ``wkv6_chunk_kernel`` (every chunk's
 output, launched as the first one's programmatic dependent), planned by
@@ -156,6 +159,11 @@ def wkv6_rows(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (out (R, T, N) float32, state_out (R, N, N) float32); ``state`` is not
     modified."""
     R, T, N = r.shape
+    if (backend != "plain" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (r, k, v, log_w, u, state))):
+        raise KernelInputError(
+            "the wkv6 kernel has no backward: inputs that need a gradient "
+            "take the plain version, named with backend='plain'")
     if T % chunk:
         raise ValueError(f"sequence length {T} is not a multiple of the "
                          f"chunk {chunk}")

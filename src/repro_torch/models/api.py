@@ -1,6 +1,7 @@
 """Unified model API: family dispatch (port of ``repro/models/api.py``).
 
     init(cfg, seed=..., device=...) -> params
+    loss_fn(params, cfg, batch) -> (loss, metrics)          [train step]
     prefill(params, cfg, batch, cache_T) -> (logits, cache)
     decode_step(params, cfg, batch) -> (logits, cache)
     verify_step(params, cfg, batch) -> (logits (B, S, V), cache)
@@ -85,6 +86,14 @@ def prefill(params, cfg, batch, cache_T: int, prompt_lens=None):
             f"ragged prefill would corrupt it (use exact-length groups)")
     return _module(cfg).prefill(params, cfg, batch, cache_T,
                                 prompt_lens=prompt_lens)
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True):
+    """The family's training loss: (scalar float32 loss, metrics).  The
+    batch holds ``tokens`` (B, S) and, per family, ``loss_mask``,
+    ``vision_embeds`` / ``vision_mask`` or ``src_embeds``.  ``remat``
+    checkpoints each layer while grad is on."""
+    return _module(cfg).loss_fn(params, cfg, batch, remat=remat)
 
 
 def decode_step(params, cfg, batch):

@@ -16,6 +16,11 @@ with ``kv_cache_int8``), the block-paged ones (L, num_blocks, block_size,
 KH, hd) (+ scales) addressed through per-slot block tables; the decode and
 verify steps write the new tokens' K/V into the given cache IN PLACE (the
 reference donates the buffer and gets a new one back) and return it.
+
+``loss_fn`` is the training objective (next-token cross-entropy plus 0.01 x
+the MoE aux loss); its forward checkpoints each layer
+(``models/remat.py``), as the reference's scan body is
+``jax.checkpoint``-ed.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, remat as remat_lib
 
 
 def init(gen: torch.Generator, cfg, device=None):
@@ -110,6 +115,12 @@ def _block(lp, x, cfg, mode, cos, sin, probe=None):
     return x + f, kv, aux
 
 
+def _train_block(lp, x, cfg, mode, cos, sin):
+    """One layer of the training forward: (x, aux or None); no K/V kept."""
+    x, _, aux = _block(lp, x, cfg, mode, cos, sin)
+    return x, aux
+
+
 def cache_specs(cfg, B: int, cache_T: int):
     """{leaf name: (shape, dtype)} of the slab KV cache."""
     kv = (cfg.num_layers, B, cache_T, cfg.num_kv_heads,
@@ -127,11 +138,15 @@ def zeros_cache(cfg, B: int, cache_T: int, device):
 
 
 def forward(params, cfg, batch, *, return_cache: bool = False,
-            cache_T: Optional[int] = None, probe=None):
+            cache_T: Optional[int] = None, probe=None, remat: bool = False):
     """Returns (hidden (B,S,D), aux_loss, cache|None): the MoE layers'
     load-balancing losses summed (float32; 0 for the dense family).
     ``probe``: a ``core.probe.StatsCollector`` drained once per layer (None
-    records nothing)."""
+    records nothing).  ``remat`` checkpoints each layer while grad is on
+    (the training forward: no cache, no probe)."""
+    if remat and (return_cache or probe is not None):
+        raise ValueError("remat is for the training forward: no cache, "
+                         "no probe")
     mode = cfg.matmul_mode
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -145,8 +160,12 @@ def forward(params, cfg, batch, *, return_cache: bool = False,
         probe.absorb_pending()
     auxs = []
     for l in range(cfg.num_layers):
-        x, (k, v), aux = _block(layer_params(params, l), x, cfg, mode, cos,
-                                sin, probe)
+        lp = layer_params(params, l)
+        if remat:
+            x, aux = remat_lib.checkpointed(_train_block, lp, x, cfg, mode,
+                                            cos, sin)
+        else:
+            x, (k, v), aux = _block(lp, x, cfg, mode, cos, sin, probe)
         if aux is not None:
             auxs.append(aux)
         if probe is not None:
@@ -170,6 +189,46 @@ def logits_from_hidden(params, cfg, x: torch.Tensor,
         return layers.unembed(params["embed"], x)
     return layers.dense(params["lm_head"], x, cfg.matmul_mode,
                         cfg.matmul_backend, probe)
+
+
+def lm_loss(params, cfg, x: torch.Tensor, tokens: torch.Tensor,
+            loss_mask: Optional[torch.Tensor] = None):
+    """Next-token cross-entropy over hidden states x (B, S, D), the
+    reference's loss body shared by every family: logits in float32 with
+    the padded vocabulary masked to -1e9, targets rolled left by one with
+    the last position masked (and ``loss_mask`` where given), a float32
+    log-sum-exp.  Returns (mean loss over valid positions, valid count)."""
+    B, S = tokens.shape
+    T = B * S
+    logits = logits_from_hidden(params, cfg, x.reshape(T, -1)).to(
+        torch.float32)
+    # mask padded vocab out of the softmax, in place: no backward reads
+    # the logits before the mask, and the copy is 4 bytes x T x vocab
+    pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab_size
+    logits.masked_fill_(pad[None, :], -1e9)
+    targets = torch.roll(tokens, -1, dims=1).reshape(T).long()
+    valid = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    valid[:, -1] = False
+    if loss_mask is not None:
+        valid &= loss_mask.to(torch.bool)
+    valid = valid.reshape(T)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, 1, targets[:, None])[:, 0]
+    n_valid = valid.sum()
+    loss = ((lse - tgt) * valid).sum() / torch.clamp_min(n_valid, 1)
+    return loss, n_valid
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True):
+    """Causal LM loss (next-token prediction, final position masked, the
+    batch's ``loss_mask`` applied) plus 0.01 x the MoE aux loss.  Returns
+    (loss, {"ce_loss", "aux_loss", "valid_tokens"}).  ``remat``
+    checkpoints each layer while grad is on."""
+    x, aux, _ = forward(params, cfg, batch, remat=remat)
+    loss, n_valid = lm_loss(params, cfg, x, batch["tokens"],
+                            batch.get("loss_mask"))
+    return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux,
+                               "valid_tokens": n_valid}
 
 
 def prefill(params, cfg, batch, cache_T: int, prompt_lens=None,

@@ -16,14 +16,18 @@ source fills the leading ones, and decode attends to all of them, so a
 short source reads zeros or an earlier occupant's K/V.  With the mask, a
 serve of a short source gives the reference's ``generate()`` stream, and a
 source that fills the pool's cross length gives the reference's serve.
+
+``loss_fn`` is the training objective; its forward checkpoints each
+encoder and decoder layer (``models/remat.py``), as the reference's two
+scan bodies are ``jax.checkpoint``-ed.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, layers
-from repro_torch.models.causal_lm import logits_from_hidden
+from repro_torch.models import attention, layers, remat as remat_lib
+from repro_torch.models.causal_lm import lm_loss, logits_from_hidden
 
 
 def init(gen: torch.Generator, cfg, device=None):
@@ -85,9 +89,21 @@ def zeros_cache(cfg, B: int, cache_T: int, device):
             for name, (shape, dtype) in cache_specs(cfg, B, cache_T).items()}
 
 
-def encode(params, cfg, src_embeds: torch.Tensor) -> torch.Tensor:
+def _enc_layer(lp, x, cfg, mode, cos, sin):
+    h = layers.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+    out, _ = attention.attention_block(lp["attn"], h, cfg, mode, cos=cos,
+                                       sin=sin, causal=False)
+    x = x + out
+    h = layers.rms_norm(lp["ffn_norm"], x, cfg.norm_eps)
+    return x + layers.ffn(lp["ffn"], h, cfg.ffn_type, mode,
+                          cfg.matmul_backend)
+
+
+def encode(params, cfg, src_embeds: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
     """src_embeds (B, Se, D) -> encoder output (B, Se, D): non-causal
-    attention with RoPE over the frames."""
+    attention with RoPE over the frames.  ``remat`` checkpoints each layer
+    while grad is on (the training forward)."""
     mode = cfg.matmul_mode
     B, Se, _ = src_embeds.shape
     x = src_embeds.to(layers.DTYPE)
@@ -95,14 +111,9 @@ def encode(params, cfg, src_embeds: torch.Tensor) -> torch.Tensor:
     cos, sin = layers.rope_angles(positions, cfg.resolved_head_dim,
                                   cfg.rope_theta)
     for l in range(cfg.encoder_layers):
-        lp = layers.stack_slice(params["encoder"], l)
-        h = layers.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
-        out, _ = attention.attention_block(lp["attn"], h, cfg, mode,
-                                           cos=cos, sin=sin, causal=False)
-        x = x + out
-        h = layers.rms_norm(lp["ffn_norm"], x, cfg.norm_eps)
-        x = x + layers.ffn(lp["ffn"], h, cfg.ffn_type, mode,
-                           cfg.matmul_backend)
+        x = remat_lib.checkpointed(
+            _enc_layer, layers.stack_slice(params["encoder"], l), x, cfg,
+            mode, cos, sin, enabled=remat)
     return layers.rms_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -136,6 +147,40 @@ def _ffn(lp, x, cfg, mode):
     h = layers.rms_norm(lp["ffn_norm"], x, cfg.norm_eps)
     return x + layers.ffn(lp["ffn"], h, cfg.ffn_type, mode,
                           cfg.matmul_backend)
+
+
+def _train_dec_layer(lp, x, cfg, mode, cos, sin, ck, cv):
+    """One decoder layer of the training forward; no K/V kept."""
+    h = layers.rms_norm(lp["attn_norm"], x, cfg.norm_eps)
+    out, _ = attention.attention_block(lp["attn"], h, cfg, mode, cos=cos,
+                                       sin=sin)
+    x = _cross(lp, x + out, cfg, mode, lambda q: attention.flash_attention(
+        q, ck, cv, causal=False))
+    return _ffn(lp, x, cfg, mode)
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True):
+    """Next-token cross-entropy of the decoder over ``batch["tokens"]``
+    given ``batch["src_embeds"]`` (final position masked; the reference
+    applies no ``loss_mask`` here).  Returns (loss, {"ce_loss",
+    "valid_tokens"}).  ``remat`` checkpoints each encoder and decoder
+    layer while grad is on."""
+    mode = cfg.matmul_mode
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    cks, cvs = cross_kv(params, cfg, encode(params, cfg, batch["src_embeds"],
+                                            remat=remat))
+    x = layers.embed(params["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    cos, sin = layers.rope_angles(positions, cfg.resolved_head_dim,
+                                  cfg.rope_theta)
+    for l in range(cfg.num_layers):
+        x = remat_lib.checkpointed(
+            _train_dec_layer, layers.stack_slice(params["decoder"], l), x,
+            cfg, mode, cos, sin, cks[l], cvs[l], enabled=remat)
+    x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    loss, n_valid = lm_loss(params, cfg, x, tokens)
+    return loss, {"ce_loss": loss, "valid_tokens": n_valid}
 
 
 def prefill(params, cfg, batch, cache_T: int, prompt_lens=None):

@@ -95,7 +95,7 @@ def dense(params, x: torch.Tensor, mode: str = "bf16",
             probe.record(x)
         y = quantized_matmul(x, w, params["w_scale"], int_mode, backend)
     else:
-        y = dense_apply(x, w.to(x.dtype), mode)
+        y = dense_apply(x, w.to(x.dtype), mode, backend)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y

@@ -157,15 +157,18 @@ def wkv_chunked(r, k, v, log_w, u, state, chunk: int = CHUNK,
                          backend=backend)
 
 
-def time_mix(p, x, x_prev, wkv_state, cfg, mode, chunk: int = CHUNK):
+def time_mix(p, x, x_prev, wkv_state, cfg, mode, chunk: int = CHUNK,
+             wkv_backend=None):
     """Full time-mix sub-block over a sequence (prefill or decode).
+    ``wkv_backend`` overrides ``cfg.matmul_backend`` for the chunked WKV
+    (the training forward names ``plain``: the kernel has no backward).
     Returns (y, last input row for the next token shift, new WKV state)."""
     r, k, v, g, log_w, x_last = time_mix_inputs(p, x, x_prev, cfg, mode)
     u = p["bonus_u"]
     S = x.shape[1]
     if S % chunk == 0 and S > 1:
         out, new_state = wkv_chunked(r, k, v, log_w, u, wkv_state, chunk,
-                                     cfg.matmul_backend)
+                                     wkv_backend or cfg.matmul_backend)
     else:
         out, new_state = wkv_sequential(r, k, v, log_w, u, wkv_state)
     y = _finalize(p, out.to(x.dtype), g, cfg, mode)

@@ -5,8 +5,10 @@ The parameter tree keeps the reference's structure and names (``embed``,
 ``ln0``, ``layers.{ln1, tm, ln2, cm}`` with a leading L axis on every layer
 leaf, ``final_norm``, ``lm_head``), so ``convert.params_from_numpy``
 carries the reference's weights over unchanged.  A Python loop over the
-layers replaces the reference's ``scan`` and ``jax.checkpoint`` (serving
-needs no activation checkpoints).
+layers replaces the reference's ``scan``; ``loss_fn``'s forward
+checkpoints each layer (``models/remat.py``) as the reference's
+``jax.checkpoint`` does, and takes the WKV recurrence's plain version by
+name (the reference trains on its jnp form; the kernel has no backward).
 
 The decode state per layer is the WKV state (B, H, N, N) float32 and the
 two token-shift carries (B, D), stacked on a leading L axis:
@@ -24,8 +26,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import layers, rwkv6
-from repro_torch.models.causal_lm import layer_params, logits_from_hidden
+from repro_torch.models import layers, remat as remat_lib, rwkv6
+from repro_torch.models.causal_lm import (layer_params, lm_loss,
+                                          logits_from_hidden)
 
 
 def init(gen: torch.Generator, cfg, device=None):
@@ -86,6 +89,39 @@ def forward(params, cfg, batch, state: Optional[dict] = None):
         state["x_tm"][l].copy_(x_tm)
         state["x_cm"][l].copy_(x_cm)
     return layers.layer_norm(params["final_norm"], x), state
+
+
+def _train_layer(lp, x, cfg, mode, zero):
+    """One layer of the training forward from the zero state ``zero``
+    (one layer's slice); the new state is dropped."""
+    h = layers.layer_norm(lp["ln1"], x)
+    y, _, _ = rwkv6.time_mix(lp["tm"], h, zero["x_tm"], zero["wkv"], cfg,
+                             mode, wkv_backend="plain")
+    x = x + y
+    h = layers.layer_norm(lp["ln2"], x)
+    y, _ = rwkv6.channel_mix(lp["cm"], h, zero["x_cm"], mode,
+                             cfg.matmul_backend)
+    return x + y
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True):
+    """Next-token cross-entropy from a zero state (final position masked;
+    the reference applies no ``loss_mask`` here).  Returns (loss,
+    {"ce_loss", "valid_tokens"}).  ``remat`` checkpoints each layer while
+    grad is on."""
+    mode = cfg.matmul_mode
+    tokens = batch["tokens"]
+    zero = {name: torch.zeros(shape[1:], dtype=dtype, device=tokens.device)
+            for name, (shape, dtype) in cache_specs(
+                cfg, tokens.shape[0]).items()}
+    x = layers.embed(params["embed"], tokens)
+    x = layers.layer_norm(params["ln0"], x)
+    for l in range(cfg.num_layers):
+        x = remat_lib.checkpointed(_train_layer, layer_params(params, l), x,
+                                   cfg, mode, zero, enabled=remat)
+    x = layers.layer_norm(params["final_norm"], x)
+    loss, n_valid = lm_loss(params, cfg, x, tokens)
+    return loss, {"ce_loss": loss, "valid_tokens": n_valid}
 
 
 def prefill(params, cfg, batch, cache_T: int = 0):

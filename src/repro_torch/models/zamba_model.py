@@ -10,7 +10,9 @@ stacked axes replace the reference's nested ``scan``.
 
 The slab decode cache is the conv and SSM states of every Mamba layer,
 (n_super, attn_every, B, ...) with the batch on axis 2, and a KV cache per
-shared-attention invocation, (n_super, B, T, KH, hd).  The decode step
+shared-attention invocation, (n_super, B, T, KH, hd).  ``loss_fn``'s
+forward checkpoints each super-block (``models/remat.py``), as the
+reference's outer scan body is ``jax.checkpoint``-ed.  The decode step
 writes every layer's new state and K/V into the cache it is given IN
 PLACE and returns it.  The family serves on the slab store only, from
 exact-length prefill groups: its recurrent state integrates every token
@@ -21,8 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, layers, mamba2
-from repro_torch.models.causal_lm import logits_from_hidden
+from repro_torch.models import attention, layers, mamba2, remat as remat_lib
+from repro_torch.models.causal_lm import lm_loss, logits_from_hidden
 
 
 def n_super(cfg) -> int:
@@ -82,6 +84,41 @@ def _shared_block(params, x, cfg, mode, s, attend):
     h = layers.rms_norm(layers.stack_slice(params["inv_ffn_norm"], s), x, cfg.norm_eps)
     return x + layers.ffn(params["shared_ffn"], h, cfg.ffn_type, mode,
                           cfg.matmul_backend)
+
+
+def _train_super(params, x, cfg, mode, s, cos, sin):
+    """Super-block ``s`` of the training forward: its Mamba-2 layers from
+    a zero state, then the shared block; no state or K/V kept."""
+    for a in range(cfg.attn_every):
+        lp = layers.stack_slice(params["mamba"], s, a)
+        h = layers.rms_norm(lp["norm"], x, cfg.norm_eps)
+        x = x + mamba2.mamba2_block(lp["mixer"], h, cfg, mode)[0]
+
+    def attend(h):
+        return attention.attention_block(params["shared_attn"], h, cfg, mode,
+                                         cos=cos, sin=sin)[0]
+
+    return _shared_block(params, x, cfg, mode, s, attend)
+
+
+def loss_fn(params, cfg, batch, *, remat: bool = True):
+    """Next-token cross-entropy (final position masked; the reference
+    applies no ``loss_mask`` here).  Returns (loss, {"ce_loss",
+    "valid_tokens"}).  ``remat`` checkpoints each super-block while grad
+    is on."""
+    mode = cfg.matmul_mode
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = layers.embed(params["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    cos, sin = layers.rope_angles(positions, cfg.resolved_head_dim,
+                                  cfg.rope_theta)
+    for s in range(n_super(cfg)):
+        x = remat_lib.checkpointed(_train_super, params, x, cfg, mode, s,
+                                   cos, sin, enabled=remat)
+    x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    loss, n_valid = lm_loss(params, cfg, x, tokens)
+    return loss, {"ce_loss": loss, "valid_tokens": n_valid}
 
 
 def prefill(params, cfg, batch, cache_T: int):

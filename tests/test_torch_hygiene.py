@@ -31,7 +31,7 @@ from repro_torch import serving
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels.paged_attention import ops as pa_ops
-from repro_torch.models import api
+from repro_torch.models import api, layers
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -93,7 +93,14 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.models.encdec",
                  "repro_torch.configs.qwen2_vl_7b",
                  "repro_torch.configs.zamba2_2_7b",
-                 "repro_torch.configs.seamless_m4t_medium"):
+                 "repro_torch.configs.seamless_m4t_medium",
+                 "repro_torch.models.remat", "repro_torch.tree",
+                 "repro_torch.train.optimizer",
+                 "repro_torch.train.train_loop",
+                 "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.runtime.fault_tolerance",
+                 "repro_torch.distributed.compression"):
         assert name in walked, name
 
 
@@ -221,7 +228,8 @@ def test_paged_attention_kernel_backend_refuses(case):
 def test_unported_families_and_sinks_raise(tmp_path):
     """Every architecture of ``ARCH_IDS`` is ported and returned; a family
     outside them raises; the telemetry sinks write a metrics file that
-    parses back into the served records."""
+    parses back into the served records; float weights in a bp_* mode are
+    quantized on every call, as weights quantized once are."""
     from repro_torch.configs.base import ARCH_IDS, PORTED_ARCHS
     assert set(PORTED_ARCHS) == set(ARCH_IDS)
     for name in ARCH_IDS:
@@ -242,11 +250,15 @@ def test_unported_families_and_sinks_raise(tmp_path):
             max_new_tokens=2)], n_slots=1)
     kinds = [r["kind"] for r in serving.read_jsonl(str(path))]
     assert kinds == ["run", "prefill", "decode", "request"]
-    # the bp_* modes take weights quantized once, not float weights
+    # the bp_* modes take float weights too (training's path): quantized
+    # on every call, they give what weights quantized once give
     cfg = _small_cfg(matmul_mode="bp_exact")
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="quantize the weights"):
-        api.prefill(api.init(cfg, device="cpu"), cfg, {"tokens": tokens}, 8)
+    tokens = torch.arange(2, 6, dtype=torch.long)[None]
+    params = api.init(cfg, device="cpu")
+    got, _ = api.prefill(params, cfg, {"tokens": tokens}, 8)
+    want, _ = api.prefill(layers.quantize_dense_params(params), cfg,
+                          {"tokens": tokens}, 8)
+    assert torch.equal(got, want)
 
 
 def test_chip_smoke_refuses_to_run_without_gpu_or_checkout(tmp_path):
