@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--details PATH]
     python3 chip_smoke.py --tile-sweep PATH
     python3 chip_smoke.py --wkv-time PATH
+    python3 chip_smoke.py --train-dist PATH
 
 Runs from the root of a checkout and needs one CUDA device; it exits
 nonzero, printing no result, when CUDA is unavailable or the port's sources
@@ -291,7 +292,34 @@ are missing.  Phases, one JSON line each:
                (the reference's STE gives them no gradient).  (c)
                bp_approx: one step, finite, K1 exact.  (d) a profiled
                step of qat, then one of bp_exact: device busy and idle,
-               the top kernels, K1's share of device time.
+               the top kernels, K1's share of device time;
+  train_dist   the rest of training on full-width qwen2-1.5b.  (a)
+               ``BoundedStalenessTrainer`` in qat, E 3, four groups of 2 x
+               512 tokens of the Zipf data, ``update_fn`` on
+               ``apply_updates``: a first step with lags forced to 0 within
+               1e-2 (per-leaf relative Frobenius of the float32 master's
+               change) of one synchronous ``make_train_step`` update on the
+               groups joined (grad_accum 4); three steps with drawn lags,
+               each group's gradient taken on the version its lag names;
+               then one bp_exact step, K1 exactly 392 tiles a group (7 x 56
+               layer runs); E+1 versions in the ring, each with its own
+               storage; losses finite; peak memory.  (b) ``pipeline_apply``
+               over a 4-stage ("model",) mesh on the card, 7 decoder
+               layers a stage, 4 microbatches of a 8 x 512 batch: bp_exact
+               forward bit-equal to the stack run one microbatch at a
+               time, K1 exactly 7 x 28 x 4; the gap to the whole-batch
+               stack printed; qat gradients of a scalar loss within 1e-2
+               of the stack's, the worst leaf printed.  (c) elastic: a
+               2-layer state of the same width (params and AdamW state)
+               placed on a (2, 2) train mesh on the card, saved, restored
+               onto (1, 4), (4, 1) and (1, 1) and gathered, each bit-equal
+               to the original; GB/s.  (d) the dry-run record of the
+               ``train`` phase's cell (8 x 1024 tokens, mesh (1, 1),
+               meta) in qat and bp_exact against ``op_analysis`` around
+               one real step of each on the card: dot FLOPs (float and
+               int) and argument bytes equal exactly; the predicted peak
+               beside ``max_memory_allocated``; ``HBM_PER_CHIP`` against
+               the card's memory.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits 1.
@@ -300,6 +328,9 @@ line, and last ``{"ok": true, "device": {...}}``.  Any failed check exits 1.
 alone and times it at rwkv6-7b's prefill shapes (``kernel_time``'s WKV6
 rows), writing them to PATH; copied into an older checkout it times that
 checkout's kernel with the same harness, for an A/B within one call.
+
+``--train-dist PATH`` builds the kernels and runs the ``train_dist``
+phase alone, writing its record to PATH.
 
 ``--tile-sweep PATH`` runs none of that: it times every tile x K split of
 the BitParticle matmul's prefill tile kernels at the serves' prefill
@@ -4803,6 +4834,470 @@ def phase_train(torch, gpu):
             "profile": profiles}, launches
 
 
+# ---------------------------------------------------------------------------
+# train_dist: bounded staleness, the pipeline, elastic restore, the dry run
+# ---------------------------------------------------------------------------
+
+#: the staleness trainer's bound, groups and steps, and one group's batch
+QS_E = 3
+QS_GROUPS = 4
+QS_STEPS = 4
+QS_DATA = dict(vocab_size=151936, seq_len=512, global_batch=2)
+#: the pipeline: stages over a ("model",) mesh on the card, microbatches,
+#: and its batch
+PIPE_STAGES = 4
+PIPE_MICRO = 4
+PIPE_DATA = dict(vocab_size=151936, seq_len=512, global_batch=8)
+#: the elastic check's meshes: placed on the first, restored on the rest
+ELASTIC_MESHES = ((2, 2), (1, 4), (4, 1), (1, 1))
+
+
+def _cuda_mesh(shape, axes=("data", "model")):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, axes, "cuda:0")
+
+
+def _grads_of(torch, cfg, params, batch):
+    """(loss, gradient tree) of ``api.loss_fn``; an unused leaf (a bp_*
+    dense weight) gets an exact zero, as in ``make_train_step``."""
+    from repro_torch.models import api
+    from repro_torch.tree import leaves, unflatten
+    flat = leaves(params)
+    for p in flat:
+        if p.is_floating_point():
+            p.requires_grad_(True)
+    trained = [p for p in flat if p.requires_grad]
+    with torch.enable_grad():
+        loss, _ = api.loss_fn(params, cfg, batch)
+        got = iter(torch.autograd.grad(loss, trained, allow_unused=True))
+    grads = []
+    for p in flat:
+        g = next(got) if p.requires_grad else None
+        grads.append(torch.zeros_like(p) if g is None else g)
+    return loss.detach(), unflatten(params, grads)
+
+
+def _leaf_rel(torch, got, want):
+    """Relative Frobenius distance of two tensors, in float32."""
+    d = torch.linalg.vector_norm((got.float() - want.float()).reshape(-1))
+    n = torch.linalg.vector_norm(want.float().reshape(-1))
+    return float(d / n) if float(n) > 0 else float(d)
+
+
+def _train_quasi_sync(torch, cfg):
+    """Part (a): ``BoundedStalenessTrainer`` in qat, ``update_fn`` on
+    ``apply_updates``; one step with lags forced to 0 against one
+    synchronous ``make_train_step`` update on the groups joined, then
+    drawn lags, then one bp_exact step on K1."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed.quasi_sync import BoundedStalenessTrainer
+    from repro_torch.models import api, remat
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_loop import (TrainConfig, batch_to_device,
+                                              make_train_step)
+    from repro_torch.tree import leaf_paths, leaves, tree_map
+    data = DataConfig(**QS_DATA)
+    opt_cfg = opt_lib.OptimizerConfig(peak_lr=1e-3, warmup_steps=2,
+                                      total_steps=8)
+    qat = cfg.replace(matmul_mode="qat")
+    groups = [[batch_to_device(make_batch(data, 10 * step + g), "cuda")
+               for g in range(QS_GROUPS)] for step in range(QS_STEPS + 1)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p0 = api.init(qat, seed=0, device="cuda")
+
+    # the synchronous reference: one update on the four groups joined
+    joined = {k: torch.cat([b[k] for b in groups[0]]) for k in groups[0][0]}
+    sync_params = tree_map(lambda t: t.detach().clone(), p0)
+    sync_opt = opt_lib.init_state(sync_params)
+    sync_step = make_train_step(qat, TrainConfig(grad_accum=QS_GROUPS,
+                                                 optimizer=opt_cfg))
+    _, sync_opt, _, sync_m = sync_step(sync_params, sync_opt,
+                                       torch.zeros(1, device="cuda"),
+                                       joined, 0.0)
+    sync_master = sync_opt["master"]
+    del sync_params, sync_opt
+    torch.cuda.empty_cache()
+    sync_s = time.perf_counter() - t0
+
+    opt = opt_lib.init_state(p0)
+    mode = {"cfg": qat}
+    calls, losses = [], []
+
+    def grad_fn(params, batch):
+        reset_counts()
+        remat.reset_runs()
+        loss, grads = _grads_of(torch, mode["cfg"], params, batch)
+        calls.append({"version": id(params), "loss": float(loss),
+                      "k1": launch_counts(), "runs": remat.RUNS["body"]})
+        losses.append(float(loss))
+        return grads
+
+    def update_fn(params, grads):
+        opt_lib.apply_updates(opt_cfg, params, opt, grads)
+        return params
+
+    tr = BoundedStalenessTrainer(grad_fn, update_fn, p0, E=QS_E, seed=0,
+                                 n_groups=QS_GROUPS)
+    steps, walls = [], []
+    for step in range(QS_STEPS + 1):
+        if step == QS_STEPS:
+            mode["cfg"] = cfg.replace(matmul_mode="bp_exact")
+        before = list(tr.history)
+        calls.clear()
+        lags = np.zeros(QS_GROUPS, int) if step == 0 else None
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.step(groups[step], lags=lags)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        want = [id(before[-1 - int(lag)]) for lag in tr.last_lags]
+        check([c["version"] for c in calls] == want,
+              f"quasi-sync step {step + 1}: gradients taken on versions "
+              f"{[c['version'] for c in calls]}, lags {tr.last_lags} name "
+              f"{want}")
+        steps.append({"lags": [int(x) for x in tr.last_lags],
+                      "losses": [c["loss"] for c in calls],
+                      "wall_s": walls[-1],
+                      "mode": "bp_exact" if step == QS_STEPS else "qat"})
+        if step == 0:
+            # the forced-zero-lag step against the synchronous update:
+            # the float32 master's change, leaf by leaf
+            rels = {}
+            for (path, mq), ms, p in zip(leaf_paths(opt["master"]),
+                                         leaves(sync_master), leaves(p0)):
+                base = p.detach().float()
+                rels[path] = _leaf_rel(torch, mq - base, ms - base)
+            worst = max(rels, key=rels.get)
+            steps[0]["sync_worst_leaf"] = worst
+            steps[0]["sync_worst_rel"] = rels[worst]
+            steps[0]["sync_loss"] = float(sync_m["loss"])
+            check(rels[worst] <= 1e-2,
+                  f"quasi-sync zero-lag step vs synchronous update: leaf "
+                  f"{worst} parts by {rels[worst]:.3e} (> 1e-2)")
+            del sync_master
+            torch.cuda.empty_cache()
+    last = calls
+    check(all(math.isfinite(x) for x in losses), f"quasi-sync losses {losses}")
+    n_proj = QWEN_LAYER_PROJ * 2 * cfg.num_layers
+    check(all(c["k1"]["bp_matmul_tile"] == n_proj
+              and c["k1"]["bp_matmul_gemv"] == 0
+              and c["runs"] == 2 * cfg.num_layers for c in last),
+          f"bp_exact staleness step: K1 per group "
+          f"{[c['k1'] for c in last]}, expected {n_proj} tiles "
+          f"({QWEN_LAYER_PROJ} x {2 * cfg.num_layers} layer runs)")
+    check(len(tr.history) == QS_E + 1,
+          f"the ring holds {len(tr.history)} versions, not {QS_E + 1}")
+    ptrs = [leaves(v)[0].untyped_storage().data_ptr() for v in tr.history]
+    check(len(set(ptrs)) == len(ptrs),
+          f"versions in the ring share storage: {ptrs}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = {"E": QS_E, "groups": QS_GROUPS,
+           "group_tokens": QS_DATA["global_batch"] * QS_DATA["seq_len"],
+           "steps": steps, "versions": len(tr.history),
+           "sync_step_s": sync_s, "peak_mem_gb": peak,
+           "k1_per_group_bp_exact": n_proj,
+           "wall_s": time.perf_counter() - t0}
+    launches = QS_GROUPS * n_proj
+    del tr, opt, p0, groups, calls, last
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def _pipeline_stage(torch, cfg):
+    """A stage of ``PIPE_STAGES``: its share of qwen2-1.5b's decoder
+    layers, positions 0..S-1."""
+    from repro_torch.models import causal_lm, layers
+    per = cfg.num_layers // PIPE_STAGES
+
+    def stage(sp, x):
+        B, S, _ = x.shape
+        pos = torch.arange(S, device=x.device)[None].expand(B, S)
+        cos, sin = causal_lm._angles(cfg, pos)
+        for i in range(per):
+            x, _ = causal_lm._train_block(layers.stack_slice(sp, i), x, cfg,
+                                          cfg.matmul_mode, cos, sin)
+        return x
+    return stage
+
+
+def _train_pipeline(torch, cfg):
+    """Part (b): ``pipeline_apply`` over a 4-stage ("model",) mesh on the
+    card: bp_exact forward bit-equal to the stack run one microbatch at a
+    time, K1 exact; qat gradients of a scalar loss against the stack's."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.models import api, layers
+    from repro_torch.tree import leaf_paths, leaves, tree_map
+    t0 = time.perf_counter()
+    mesh = _cuda_mesh((PIPE_STAGES,), ("model",))
+    data = DataConfig(**PIPE_DATA)
+    tokens = torch.as_tensor(make_batch(data, 200)["tokens"],
+                             device="cuda")
+    params = api.init(cfg, seed=0, device="cuda")
+    per = cfg.num_layers // PIPE_STAGES
+    staged = tree_map(lambda t: t.reshape(PIPE_STAGES, per, *t.shape[1:]),
+                      params["layers"])
+    mb = PIPE_DATA["global_batch"] // PIPE_MICRO
+    rec = {"stages": PIPE_STAGES, "layers_per_stage": per,
+           "microbatches": PIPE_MICRO,
+           "tokens": PIPE_DATA["global_batch"] * PIPE_DATA["seq_len"]}
+
+    def stack(c, x, sp_tree, per_micro=True):
+        stage = _pipeline_stage(torch, c)
+        parts = x.split(mb) if per_micro else (x,)
+        outs = []
+        for h in parts:
+            for s in range(PIPE_STAGES):
+                h = stage(tree_map(lambda t, s=s: t[s], sp_tree), h)
+            outs.append(h)
+        return torch.cat(outs)
+
+    bp = cfg.replace(matmul_mode="bp_exact")
+    with torch.no_grad():
+        x = layers.embed(params["embed"], tokens)
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = pipeline_apply(_pipeline_stage(torch, bp), staged, x,
+                             mesh=mesh, n_microbatches=PIPE_MICRO)
+        torch.cuda.synchronize()
+        rec["bp_exact_forward_s"] = time.perf_counter() - t1
+        lc = launch_counts()
+        want_k1 = QWEN_LAYER_PROJ * cfg.num_layers * PIPE_MICRO
+        check(lc["bp_matmul_tile"] == want_k1 and lc["bp_matmul_gemv"] == 0,
+              f"pipeline bp_exact K1 launches {lc}, expected {want_k1} "
+              f"tiles")
+        rec["launches"] = lc
+        seq = stack(bp, x, staged)
+        check(_same_bits(torch, out, seq),
+              f"pipeline bp_exact output differs from the stack run one "
+              f"microbatch at a time: max |diff| "
+              f"{float((out.float() - seq.float()).abs().max())}")
+        whole = stack(bp, x, staged, per_micro=False)
+        rec["whole_batch_max_abs_diff"] = float(
+            (out.float() - whole.float()).abs().max())
+        rec["whole_batch_rel_frobenius"] = _leaf_rel(torch, out, whole)
+        del out, seq, whole
+
+    qat = cfg.replace(matmul_mode="qat")
+    flat = [t for t in leaves(params["layers"]) if t.is_floating_point()]
+    for t in flat:
+        t.requires_grad_(True)
+    # the stage views again, now of leaves that need a gradient
+    staged = tree_map(lambda t: t.reshape(PIPE_STAGES, per, *t.shape[1:]),
+                      params["layers"])
+    grads = {}
+    for name, run in (
+            ("pipeline", lambda: pipeline_apply(
+                _pipeline_stage(torch, qat), staged, x, mesh=mesh,
+                n_microbatches=PIPE_MICRO)),
+            ("stack", lambda: stack(qat, x, staged))):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.enable_grad():
+            loss = run().float().pow(2).mean()
+            grads[name] = torch.autograd.grad(loss, flat)
+        torch.cuda.synchronize()
+        rec[f"qat_{name}_fwd_bwd_s"] = time.perf_counter() - t1
+        rec[f"qat_{name}_loss"] = float(loss.detach())
+    paths = [p for p, t in leaf_paths(params["layers"])
+             if t.is_floating_point()]
+    rels = {p: _leaf_rel(torch, a, b) for p, a, b in
+            zip(paths, grads["pipeline"], grads["stack"])}
+    worst = max(rels, key=rels.get)
+    rec["qat_grad_worst_leaf"] = worst
+    rec["qat_grad_worst_rel"] = rels[worst]
+    check(rels[worst] <= 1e-2,
+          f"pipeline qat gradient of {worst} parts from the stack's by "
+          f"{rels[worst]:.3e} (> 1e-2)")
+    rec["wall_s"] = time.perf_counter() - t0
+    del params, staged, grads, flat, x
+    torch.cuda.empty_cache()
+    return rec, want_k1
+
+
+def _train_elastic(torch, cfg, ckpt_dir):
+    """Part (c): a full-width state (params and AdamW state, at
+    ``TRAIN_RESUME_LAYERS`` layers) placed on a (2, 2) train mesh on the
+    card, saved, restored onto each of ``ELASTIC_MESHES[1:]`` and
+    gathered, bit-equal to the original."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.distributed import sharding
+    from repro_torch.models import api
+    from repro_torch.runtime.elastic import restore_for_mesh
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.tree import leaf_paths
+    small = cfg.replace(num_layers=TRAIN_RESUME_LAYERS)
+    params = api.init(small, seed=0, device="cuda")
+    state = {"params": params, "opt": opt_lib.init_state(params)}
+    gb = _state_bytes(state) / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = sharding.place_tree(state, "train",
+                                 _cuda_mesh(ELASTIC_MESHES[0]))
+    torch.cuda.synchronize()
+    rec = {"layers": TRAIN_RESUME_LAYERS, "state_gb": gb,
+           "placed_on": list(ELASTIC_MESHES[0]),
+           "place_s": time.perf_counter() - t0, "restores": []}
+    mgr = CheckpointManager(str(ckpt_dir), keep=1, async_save=False)
+    t0 = time.perf_counter()
+    mgr.save(1, placed)
+    rec["save_s"] = time.perf_counter() - t0
+    rec["save_gb_per_s"] = gb / rec["save_s"]
+    del placed
+    want = leaf_paths(state)
+    for shape in ELASTIC_MESHES[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = restore_for_mesh(mgr, 1, state, _cuda_mesh(shape), "train")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whole = sharding.gather_tree(got)
+        torch.cuda.synchronize()
+        gather_s = time.perf_counter() - t0
+        unequal = [p for (p, a), (_, b) in zip(leaf_paths(whole), want)
+                   if not _same_bits(torch, a, b)]
+        check(not unequal, f"elastic restore onto {shape}: leaves differ "
+                           f"{unequal[:5]}")
+        rec["restores"].append({"mesh": list(shape),
+                                "restore_s": restore_s,
+                                "restore_gb_per_s": gb / restore_s,
+                                "gather_s": gather_s, "bit_equal": True})
+        del got, whole
+    del state, params, want
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_dryrun_vs_card(torch, cfg):
+    """Part (d): the dry-run record of the ``train`` phase's cell (8 x
+    1024 tokens, mesh (1, 1), meta) in qat and bp_exact, against
+    ``op_analysis`` around one real step of each on the card."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import dryrun, op_analysis
+    from repro_torch.launch.mesh import HBM_PER_CHIP, make_mesh
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(0.95 * HBM_PER_CHIP <= total <= HBM_PER_CHIP,
+          f"the card's {total} bytes do not match HBM_PER_CHIP "
+          f"{HBM_PER_CHIP}")
+    shape = ShapeConfig("train_8x1024", TRAIN_DATA["seq_len"],
+                        TRAIN_DATA["global_batch"], "train")
+    tokens = torch.as_tensor(make_batch(DataConfig(**TRAIN_DATA), 300)[
+        "tokens"], device="cuda")
+    rec = {"hbm_per_chip": HBM_PER_CHIP, "total_memory": total,
+           "modes": {}}
+    k1 = 0
+    for mode in ("qat", "bp_exact"):
+        c = cfg.replace(matmul_mode=mode)
+        dry = dryrun.run_cell(cfg.name, shape, out_dir=None, verbose=False,
+                              mesh=make_mesh((1, 1), ("data", "model"),
+                                             "meta"), cfg=c)
+        check(dry["ok"], f"dry run of the train cell ({mode}): "
+                         f"{dry.get('error')}")
+        params = api.init(c, seed=0, device="cuda")
+        opt = opt_lib.init_state(params)
+        batch = {"tokens": tokens}
+        step = make_train_step(c, TrainConfig(
+            grad_accum=1, optimizer=opt_lib.OptimizerConfig()))
+        err = torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        args = {"params": params, "opt": opt, "batch": batch}
+        t0 = time.perf_counter()
+        with op_analysis.OpAnalysis(None, args) as oa:
+            step(params, opt, err, batch, 0.0)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        real = oa.result()
+        measured = torch.cuda.max_memory_allocated()
+        lc = launch_counts()
+        k1 += lc["bp_matmul_tile"]
+        ma = dry["memory_analysis"]
+        real_bytes = _state_bytes(args)
+        m = {"dry_dot_flops": dry["dot_flops_per_device"],
+             "dry_dot_flops_int": dry["dot_flops_int_per_device"],
+             "card_dot_flops": real["dot_flops_per_device"],
+             "card_dot_flops_int": real["dot_flops_int_per_device"],
+             "dry_argument_bytes": ma["argument_size"],
+             "card_state_bytes": real_bytes,
+             "card_analysis_argument_bytes":
+                 real["argument_bytes_per_device"],
+             "dry_peak_bytes": ma["peak_memory"],
+             "card_analysis_peak_bytes": real["peak_bytes_per_device"],
+             "card_max_memory_allocated": measured,
+             "peak_ratio_dry_over_card": ma["peak_memory"] / measured,
+             "dry_run_s": dry["total_s"], "card_step_under_analysis_s": wall,
+             "dry_kernel_calls": dry["kernel_calls"],
+             "card_kernel_calls": real["kernel_calls"], "launches": lc}
+        check(m["dry_dot_flops"] == m["card_dot_flops"]
+              and m["dry_dot_flops_int"] == m["card_dot_flops_int"],
+              f"{mode}: dry-run dot FLOPs {m['dry_dot_flops']} / "
+              f"{m['dry_dot_flops_int']} against the card's "
+              f"{m['card_dot_flops']} / {m['card_dot_flops_int']}")
+        check(ma["argument_size"] == real_bytes,
+              f"{mode}: dry-run argument bytes {ma['argument_size']} "
+              f"against the state's {real_bytes}")
+        if mode == "bp_exact":
+            check(real["kernel_calls"].get("bp_matmul") == lc["bp_matmul"]
+                  > 0, f"bp_exact: op_analysis saw "
+                       f"{real['kernel_calls']} K1 calls, launched {lc}")
+        rec["modes"][mode] = m
+        del params, opt, step, args, oa
+        torch.cuda.empty_cache()
+    return rec, k1
+
+
+def phase_train_dist(torch, gpu):
+    """The rest of training on full-width qwen2-1.5b (module docstring,
+    ``train_dist``)."""
+    import shutil
+
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch("qwen2-1.5b")
+    out = {}
+    t0 = time.perf_counter()
+    out["quasi_sync"], qs_k1 = _train_quasi_sync(torch, cfg)
+    emit({"phase": "train_dist", "part": "quasi_sync", "gpu": gpu,
+          **out["quasi_sync"]})
+    torch.cuda.reset_peak_memory_stats()
+    out["pipeline"], pipe_k1 = _train_pipeline(torch, cfg)
+    out["pipeline"]["peak_mem_gb"] = (torch.cuda.max_memory_allocated()
+                                      / 2 ** 30)
+    emit({"phase": "train_dist", "part": "pipeline", "gpu": gpu,
+          **out["pipeline"]})
+    ckpt_dir = ROOT / "build" / "elastic_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out["elastic"] = _train_elastic(torch, cfg, ckpt_dir)
+        out["elastic"]["wall_s"] = time.perf_counter() - t1
+        out["elastic"]["peak_mem_gb"] = (torch.cuda.max_memory_allocated()
+                                         / 2 ** 30)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit({"phase": "train_dist", "part": "elastic", "gpu": gpu,
+          **out["elastic"]})
+    t1 = time.perf_counter()
+    out["dryrun"], dry_k1 = _train_dryrun_vs_card(torch, cfg)
+    out["dryrun"]["wall_s"] = time.perf_counter() - t1
+    emit({"phase": "train_dist", "part": "dryrun", "gpu": gpu,
+          **out["dryrun"], "phase_s": time.perf_counter() - t0})
+    launches = {"bp_matmul_tile": qs_k1 + pipe_k1 + dry_k1,
+                "bp_matmul_gemv": 0}
+    return out, launches
+
+
 KERNEL_SYMBOLS = {"bp_matmul_gemv": ("bp_gemv",),
                   "bp_matmul_tile": ("bp_tile", "bp_wgmma"),
                   "paged_attention": ("paged_attention_kernel",),
@@ -5219,6 +5714,10 @@ def main() -> int:
                     help="instead of the smoke test, time every tile x K "
                          "split of the prefill tile kernels at the serves' "
                          "prefill shapes and write them to this JSON file")
+    ap.add_argument("--train-dist", default=None, metavar="PATH",
+                    help="instead of the smoke test, build the kernels and "
+                         "run the train_dist phase alone, writing its "
+                         "record to this JSON file")
     ap.add_argument("--wkv-time", default=None, metavar="PATH",
                     help="instead of the smoke test, time the WKV6 kernels "
                          "alone at rwkv6-7b's prefill shapes and write "
@@ -5242,12 +5741,19 @@ def main() -> int:
     smi = nvidia_smi_line()
     gpu = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "sm_clock_mhz": float(nvidia_smi("clocks.max.sm", "nounits"))}
-    if args.tile_sweep or args.wkv_time:
+    if args.tile_sweep or args.wkv_time or args.train_dist:
         try:
             if args.tile_sweep:
                 tile_sweep(torch, gpu, args.tile_sweep)
-            else:
+            elif args.wkv_time:
                 wkv_time(torch, gpu, args.wkv_time)
+            else:
+                phase_device(torch, gpu)
+                dist, _ = phase_train_dist(torch, gpu)
+                path = pathlib.Path(args.train_dist)
+                path.parent.mkdir(parents=True, exist_ok=True)
+                path.write_text(json.dumps({"gpu": gpu, "train_dist": dist},
+                                           indent=1))
         except CheckFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -5299,6 +5805,8 @@ def main() -> int:
         records.extend({ph: rec} for ph, rec in fam.items())
         train, train_launches = phase_train(torch, gpu)
         records.append({"train": train})
+        dist, dist_launches = phase_train_dist(torch, gpu)
+        records.append({"train_dist": dist})
         bp = decode_layer_summary(torch, flush, serve["n_slots"], launches)
         tile = prefill_layer_summary(
             torch, flush, launches["prefill_rows"],
@@ -5317,7 +5825,8 @@ def main() -> int:
                  "serve_rwkv": rwkv_launches,
                  "serve_moe": moe_launches["moonshot-v1-16b-a3b"],
                  "serve_moe_granite": moe_launches["granite-moe-1b-a400m"],
-                 **fam_launches, "train": train_launches}
+                 **fam_launches, "train": train_launches,
+                 "train_dist": dist_launches}
         pa = paged_layer_summary(
             torch, flush, paged_shape, paged_launches,
             {**moe_shapes, "qwen2-vl-7b": fam_shapes["serve_vlm"]})

@@ -54,6 +54,12 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return host.numpy()
 
 
+def _whole(leaf) -> torch.Tensor:
+    """A leaf placed on a mesh (``distributed.sharding.Placed``) gathered
+    whole, as the reference's host copy gathers a sharded array."""
+    return leaf if isinstance(leaf, torch.Tensor) else leaf.gather()
+
+
 def _crc(arr: np.ndarray) -> int:
     return zlib.crc32(memoryview(np.ascontiguousarray(arr)).cast("B"))
 
@@ -82,10 +88,11 @@ class CheckpointManager:
 
     # -- save ----------------------------------------------------------------
     def save(self, step: int, tree: Any, blocking: Optional[bool] = None):
-        """Copy ``tree`` (nested dicts of tensors) to host memory, then
-        write it, in a daemon thread unless ``blocking``."""
+        """Copy ``tree`` (nested dicts of tensors, or of leaves placed on a
+        mesh, each gathered first) to host memory, then write it, in a
+        daemon thread unless ``blocking``."""
         self.wait()
-        host = [(path, _DTYPE_NAMES[leaf.dtype], _to_numpy(leaf))
+        host = [(path, _DTYPE_NAMES[leaf.dtype], _to_numpy(_whole(leaf)))
                 for path, leaf in leaf_paths(tree)]
         if blocking is None:
             blocking = not self.async_save

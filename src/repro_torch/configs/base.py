@@ -9,6 +9,11 @@ family (``family="ssm"``: ``rwkv6-7b``), the Mamba-2 hybrid
 (``family="hybrid"``: ``zamba2-2.7b``) and the encoder-decoder
 (``family="audio"``: ``seamless-m4t-medium``, over precomputed frame
 embeddings).
+
+Every workload shape is a ``ShapeConfig``; ``runnable_cells()`` yields the
+(arch x shape) grid with the reference's applicability rule (``long_500k``
+only for the sub-quadratic families), which the dry run
+(``launch/dryrun.py``) walks.
 """
 
 from __future__ import annotations
@@ -100,6 +105,14 @@ class ArchConfig:
     def is_encoder_decoder(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
@@ -130,6 +143,52 @@ class ArchConfig:
             kw.update(mrope_sections=(4, 6, 6))  # sums to head_dim/2 = 16
         return self.replace(**kw)
 
+    def param_count(self, *, active_only: bool = False) -> int:
+        """The reference's parameter-count estimate (for 6*N*D model
+        FLOPs): the LM head counts once, the embedding lookup not; MoE
+        counts ``top_k`` experts with ``active_only``."""
+        d, l = self.d_model, self.num_layers
+        hd = self.resolved_head_dim
+        attn = (d * hd * (self.num_heads + 2 * self.num_kv_heads)
+                + self.num_heads * hd * d)
+        ffn_dense = (3 if self.ffn_type == "swiglu" else 2) * d * self.d_ff
+        if self.num_experts:
+            n_exp = self.top_k if active_only else self.num_experts
+            ffn = n_exp * ffn_dense + d * self.num_experts  # + router
+        else:
+            ffn = ffn_dense
+        if self.family == "ssm":                      # rwkv6 block
+            blk = 5 * d * d + 2 * d * self.d_ff       # time-mix + channel-mix
+        elif self.family == "hybrid":     # mamba2 + shared attn amortized
+            d_in = 2 * d
+            blk = d * (2 * d_in + 2 * self.ssm_state) + d_in * d
+            n_attn = l // max(self.attn_every, 1)
+            blk += (attn + ffn) * n_attn / max(l, 1)
+        else:
+            blk = attn + ffn
+        total = l * blk + self.vocab_padded * d
+        if self.encoder_layers:
+            total += self.encoder_layers * (attn + ffn)   # encoder stack
+            total += l * (d * hd * (self.num_heads + 2 * self.num_kv_heads)
+                          + self.num_heads * hd * d)      # cross-attention
+        return int(total)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 
 def get_arch(name: str) -> ArchConfig:
     if name not in ARCH_IDS:
@@ -141,3 +200,19 @@ def get_arch(name: str) -> ArchConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
     return mod.CONFIG
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> bool:
+    """``long_500k`` needs sub-quadratic attention: SSM / hybrid only."""
+    if shape.name == "long_500k":
+        return arch.sub_quadratic
+    return True
+
+
+def runnable_cells():
+    """All (arch_id, shape_name) cells per the applicability rule."""
+    for aid in ARCH_IDS:
+        arch = get_arch(aid)
+        for sname, shape in SHAPES.items():
+            if shape_applicable(arch, shape):
+                yield aid, sname

@@ -52,6 +52,7 @@ import torch
 
 from repro_torch.kernels.bitparticle_matmul import ref
 from repro_torch.kernels.build import KernelError, KernelInputError
+from repro_torch.launch import op_analysis
 
 BACKENDS = ("auto", "plain", "kernel")
 
@@ -243,7 +244,19 @@ def bp_matmul(a_q: torch.Tensor, w_q: torch.Tensor,
     a_q: (..., K) int8 activations; w_q: (K, N) int8 weights (K-major for
     the kernel).  scale_a: (..., 1) or (...,) per-row and scale_w: (N,),
     both or neither.  Returns float32 (..., N) with both (fused dequant),
-    else the raw int32 accumulators."""
+    else the raw int32 accumulators.  An active ``op_analysis`` counts
+    2·M·N·K int operations (three products in approx mode)."""
+    *lead, k = a_q.shape
+    m = 1
+    for d in lead:
+        m *= d
+    ops = 2.0 * m * w_q.shape[-1] * k * (3 if approx else 1)
+    with op_analysis.kernel_call("bp_matmul", int_flops=ops):
+        return _bp_matmul(a_q, w_q, scale_a, scale_w, approx=approx,
+                          backend=backend)
+
+
+def _bp_matmul(a_q, w_q, scale_a, scale_w, *, approx: bool, backend: str):
     *lead, k = a_q.shape
     if w_q.ndim != 2 or w_q.shape[0] != k:
         raise ValueError(f"shape mismatch: a {tuple(a_q.shape)} w "
@@ -356,6 +369,20 @@ class MeshWeight:
     def shape(self):
         return (*self.weights[0].shape[:-2], self.k, self.n)
 
+    def shard_nbytes(self) -> dict:
+        """{mesh index: bytes} of the slices each shard reads: model shard
+        j's slice (the ``rep`` weight and ``splitk``'s whole scale at
+        shard 0) on every data row."""
+        out = {}
+        rows = self.mesh.devices.shape[0]
+        for j, w in enumerate(self.weights):
+            for i in range(rows):
+                out[(i, j)] = out.get((i, j), 0) + w.numel()
+        for j, s in enumerate(self.scales):
+            for i in range(rows):
+                out[(i, j)] = out.get((i, j), 0) + s.numel() * s.element_size()
+        return out
+
     def __getitem__(self, idx) -> "MeshWeight":
         return MeshWeight(self.mesh, self.strategy, self.k, self.n,
                           [w[idx] for w in self.weights],
@@ -416,18 +443,24 @@ def bp_matmul_sharded(a_q: torch.Tensor, w: MeshWeight,
     sa_rows = ((None,) * n_data if sa is None else
                sa.chunk(n_data) if n_data > 1 else (sa,))
     outs = []
-    for devs, a_i, sa_i in zip(w.mesh.devices, a_rows, sa_rows):
+    for i, (devs, a_i, sa_i) in enumerate(zip(w.mesh.devices, a_rows,
+                                              sa_rows)):
         def run(j, a, weight, scale=None):
-            return bp_matmul(
-                a.to(devs[j]), weight,
-                None if scale is None else sa_i.to(devs[j]), scale,
-                approx=approx, backend=backend).to(home)
+            with op_analysis.on_shard((i, j)):
+                return bp_matmul(
+                    a.to(devs[j]), weight,
+                    None if scale is None else sa_i.to(devs[j]), scale,
+                    approx=approx, backend=backend).to(home)
 
         if strategy == "col":
-            outs.append(torch.cat(
+            out = torch.cat(
                 [run(j, a_i, wj, None if sa is None else sj)
                  for j, (wj, sj) in enumerate(zip(w.weights, w.scales))],
-                dim=-1))
+                dim=-1)
+            op_analysis.collective("all-gather",
+                                   out.numel() * out.element_size(),
+                                   "bp_matmul_sharded col")
+            outs.append(out)
         elif strategy == "splitk":
             kl = k // len(w.weights)
             acc = combine_matmul_partials(

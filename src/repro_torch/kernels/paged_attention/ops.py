@@ -51,6 +51,7 @@ import torch
 
 from repro_torch.kernels.build import KernelError, KernelInputError
 from repro_torch.kernels.paged_attention import ref
+from repro_torch.launch import op_analysis
 
 BACKENDS = ("auto", "plain", "kernel")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -171,6 +172,22 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if mesh is not None and not scaled:
         return _paged_attention_sharded(q, k_pages, v_pages, block_tables,
                                         lengths, backend=backend, mesh=mesh)
+    with op_analysis.kernel_call("paged_attention",
+                                 flops=_flops(q, k_pages, block_tables)):
+        return _paged_attention(q, k_pages, v_pages, block_tables, lengths,
+                                k_scale_pages, v_scale_pages, backend)
+
+
+def _flops(q, k_pages, block_tables) -> float:
+    """4·B·H·(P·bs)·D: the scores and the weighted values over every
+    position of the table (``op_analysis``)."""
+    B, H, D = q.shape
+    return 4.0 * B * H * block_tables.shape[-1] * k_pages.shape[1] * D
+
+
+def _paged_attention(q, k_pages, v_pages, block_tables, lengths,
+                     k_scale_pages, v_scale_pages, backend):
+    scaled = k_scale_pages is not None or v_scale_pages is not None
     if not _use_kernel(q, backend, scaled):
         return ref.paged_attention_plain(
             q, k_pages, v_pages, block_tables, lengths,
@@ -188,6 +205,14 @@ def paged_attention_state(q: torch.Tensor, k_pages: torch.Tensor,
     without scale pages; returns float32 (acc (B, KH, G, D) unnormalized,
     m (B, KH, G, 1), l (B, KH, G, 1)).  A row with no valid position (a
     negative length) gives exactly (0, -0.7 FLT_MAX, 0)."""
+    with op_analysis.kernel_call("paged_attention_state",
+                                 flops=_flops(q, k_pages, block_tables)):
+        return _paged_attention_state(q, k_pages, v_pages, block_tables,
+                                      lengths, backend)
+
+
+def _paged_attention_state(q, k_pages, v_pages, block_tables, lengths,
+                           backend):
     if not _use_kernel(q, backend, False):
         return ref.paged_attention_state_plain(q, k_pages, v_pages,
                                                block_tables, lengths)
@@ -292,17 +317,19 @@ def _paged_attention_sharded(q, k_pages, v_pages, block_tables, lengths, *,
         q_i, bt_i, ln_i = q[sl], block_tables[sl], lengths[sl]
         if not kv_split:
             dev = mesh.devices[i, 0]
-            outs.append(paged_attention(
-                q_i.to(dev), k_pages, v_pages, bt_i.to(dev), ln_i.to(dev),
-                backend=backend).to(q.device))
+            with op_analysis.on_shard((i, 0)):
+                outs.append(paged_attention(
+                    q_i.to(dev), k_pages, v_pages, bt_i.to(dev),
+                    ln_i.to(dev), backend=backend).to(q.device))
             continue
         states = []
         for s in range(model):
             dev = mesh.devices[i, s]
-            acc, m, l = paged_attention_state(
-                q_i.to(dev), k_pages, v_pages,
-                bt_i[:, s * p_l:(s + 1) * p_l].to(dev),
-                (ln_i - s * p_l * bs).to(dev), backend=backend)
+            with op_analysis.on_shard((i, s)):
+                acc, m, l = paged_attention_state(
+                    q_i.to(dev), k_pages, v_pages,
+                    bt_i[:, s * p_l:(s + 1) * p_l].to(dev),
+                    (ln_i - s * p_l * bs).to(dev), backend=backend)
             states.append((acc.to(q.device), m.to(q.device),
                            l.to(q.device)))
         out = sharding.combine_softmax_state(*zip(*states))

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.build import KernelError, KernelInputError
 from repro_torch.kernels.wkv6 import ref
+from repro_torch.launch import op_analysis
 
 BACKENDS = ("auto", "plain", "kernel")
 #: chunk lengths the kernel takes (the reference tests' range)
@@ -157,7 +158,16 @@ def wkv6_rows(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16 (one dtype); log_w: (R, T, N) float32, <= 0; u: (R, N)
     float32; state: (R, N, N) float32.  ``T % chunk == 0``.  Returns
     (out (R, T, N) float32, state_out (R, N, N) float32); ``state`` is not
-    modified."""
+    modified.  An active ``op_analysis`` counts 4·R·T·N·(chunk + N)
+    FLOPs: per chunk, two chunk x chunk x N products and two chunk x N x N
+    ones."""
+    R, T, N = r.shape
+    with op_analysis.kernel_call("wkv6",
+                                 flops=4.0 * R * T * N * (chunk + N)):
+        return _wkv6_rows(r, k, v, log_w, u, state, chunk, backend)
+
+
+def _wkv6_rows(r, k, v, log_w, u, state, chunk, backend):
     R, T, N = r.shape
     if (backend != "plain" and torch.is_grad_enabled()
             and any(t.requires_grad for t in (r, k, v, log_w, u, state))):

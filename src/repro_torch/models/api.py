@@ -13,7 +13,9 @@
 
 
 plus the slab and block-paged cache helpers the serving engine uses, and
-the partition specs of a mesh (``param_pspecs``, ``cache_pspecs``).  The
+the partition specs of a mesh (``param_pspecs``, ``cache_pspecs``), and
+the dry run's ``input_specs`` (meta tensors of every model input of a
+workload shape) and ``model_flops``.  The
 dense, mixture-of-experts and vision-language families (``causal_lm``)
 have every entry point.  The RWKV-6 (``ssm``, ``rwkv_model``), hybrid
 (``zamba_model``) and encoder-decoder (``audio``, ``encdec``) families
@@ -329,7 +331,8 @@ def cache_pspec_tree(cfg, cache_like, mesh_axes, *, paged: bool = False
     for name, leaf in cache_like.items():
         shape = tuple(leaf.shape if isinstance(leaf, torch.Tensor)
                       else leaf[0])
-        out[name] = (sharding.logical_pspec(shape, names[name], axes)
+        out[name] = (sharding.logical_pspec(shape, names[name], "decode",
+                                            axes)
                      if names is not None else (None,) * len(shape))
     return out
 
@@ -345,4 +348,64 @@ def param_pspecs(params, mesh_axes) -> dict:
     """Serve-recipe spec tree of the model params (weight-stationary
     tensor parallelism: last dims over "model")."""
     from repro_torch.distributed import sharding
-    return sharding.param_specs(params, mesh_axes)
+    return sharding.param_specs(params, "serve", mesh_axes)
+
+
+# ---------------------------------------------------------------------------
+# The dry run's inputs and model FLOPs (``launch/dryrun.py``)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg, shape, device="meta") -> Dict[str, object]:
+    """Every model input of one (arch x workload-shape) cell as tensors on
+    ``device`` (meta by default: shapes and dtypes, no storage; zeros on a
+    real device), with the reference's shapes and dtypes: int32
+    ``tokens``; the VLM's ``vision_embeds``, ``vision_mask`` and 3-row
+    ``positions``; the audio family's ``src_embeds`` of S/4 frames; for
+    decode one token per row, the slab cache of :func:`cache_specs` (the
+    audio family's has the port's ``cross_len`` leaf beside the
+    reference's) and a scalar int32 ``cache_len``."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def t(dims, dtype):
+        return torch.zeros(tuple(int(d) for d in dims), dtype=dtype,
+                           device=device)
+
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": t((B, S), torch.int32)}
+        if cfg.family == "vlm":
+            batch.update({"vision_embeds": t((B, S, cfg.d_model),
+                                             layers.DTYPE),
+                          "vision_mask": t((B, S), torch.bool),
+                          "positions": t((3, B, S), torch.int32)})
+        if cfg.family == "audio":
+            batch["src_embeds"] = t((B, S // 4, cfg.d_model), layers.DTYPE)
+        return batch
+    if shape.kind == "decode":
+        return {"tokens": t((B, 1), torch.int32),
+                "cache": {name: t(dims, dtype) for name, (dims, dtype)
+                          in cache_specs(cfg, B, S).items()},
+                "cache_len": t((), torch.int32)}
+    raise ValueError(shape.kind)
+
+
+def model_flops(cfg, shape) -> float:
+    """MODEL_FLOPS, as the reference counts them: 6·N·D for training (N
+    the params, active for MoE), 2·N·D for one forward; decode counts one
+    token per sequence plus the attention reads over the cache."""
+    n_active = cfg.param_count(active_only=True)
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n_active * tokens
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n_active * tokens
+    tokens = shape.global_batch
+    attn_read = 0.0
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
+        attn_read = (4.0 * cfg.num_layers * cfg.num_heads
+                     * cfg.resolved_head_dim * shape.seq_len * tokens)
+    if cfg.family == "hybrid":
+        n_sup = cfg.num_layers // cfg.attn_every
+        attn_read = (4.0 * n_sup * cfg.num_heads * cfg.resolved_head_dim
+                     * shape.seq_len * tokens)
+    return 2.0 * n_active * tokens + attn_read

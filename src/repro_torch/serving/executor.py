@@ -347,6 +347,7 @@ class MeshExecutor(SingleDeviceExecutor):
     tree, as the engine holds it; the entry points run the placed one."""
 
     def __init__(self, cfg, params=None, *, mesh: Mesh):
+        mesh.require_serving()
         super().__init__(cfg, None, device=mesh.home)
         self.mesh = mesh
         self._whole = params

@@ -93,27 +93,41 @@ def update_metrics(cfg: OptimizerConfig, opt_state, grads):
     return lr, gnorm, scale
 
 
+def bias_corrections(cfg: OptimizerConfig, opt_state):
+    """Adam's (1 - b1^t, 1 - b2^t) for the step ``opt_state`` is about to
+    take, as Python floats computed in float32."""
+    step = opt_state["step"].cpu().to(torch.float32) + 1
+    return (float(1 - _f32(cfg.b1) ** step),
+            float(1 - _f32(cfg.b2) ** step))
+
+
+@torch.no_grad()
+def adamw_leaf(cfg: OptimizerConfig, path: str, p, g, m, v, master,
+               scale, lr: float, bc1: float, bc2: float) -> None:
+    """AdamW on one leaf (or one shard of it), in place: ``m``, ``v``,
+    ``master``, and ``p`` cast from master.  ``scale`` is the clip scale
+    of the whole gradient, ``lr`` and the bias corrections the step's."""
+    g = g.to(torch.float32) * scale.to(g.device)
+    m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+    u = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
+    if _decay_mask(path):
+        u.add_(cfg.weight_decay * master)
+    master.sub_(lr * u)
+    p.copy_(master)
+
+
 @torch.no_grad()
 def apply_updates(cfg: OptimizerConfig, params, opt_state, grads):
     """One AdamW step, in place: ``opt_state``'s moments, master and step
     and ``params`` (cast from master).  Returns (params, opt_state,
     {"lr", "grad_norm"})."""
     lr, gnorm, scale = update_metrics(cfg, opt_state, grads)
-    step = opt_state["step"].cpu().to(torch.float32) + 1
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = float(1 - _f32(b1) ** step)
-    bc2 = float(1 - _f32(b2) ** step)
+    bc1, bc2 = bias_corrections(cfg, opt_state)
     lr_f = float(lr)
     flat = zip(leaf_paths(params), leaves(grads), leaves(opt_state["m"]),
                leaves(opt_state["v"]), leaves(opt_state["master"]))
     for (path, p), g, m, v, master in flat:
-        g = g.to(torch.float32) * scale.to(g.device)
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        u = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
-        if _decay_mask(path):
-            u.add_(cfg.weight_decay * master)
-        master.sub_(lr_f * u)
-        p.copy_(master)
+        adamw_leaf(cfg, path, p, g, m, v, master, scale, lr_f, bc1, bc2)
     opt_state["step"] += 1
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}

@@ -23,11 +23,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import cnn_zoo
+from repro.configs import cnn_zoo as jcnn
 from repro.core import array_sim as jas
 from repro.core import cost_model as jcm
 from repro.core import dataflow as jdf
 from repro.core.sparsity import sample_with_bit_sparsity as jsample
+from repro_torch.configs import cnn_zoo
 from repro_torch.core import array_sim as tas
 from repro_torch.core import cost_model as tcm
 from repro_torch.core import dataflow as tdf
@@ -178,18 +179,31 @@ def test_run_experiment_is_seeded_and_bounded():
 # --- dataflow mapper ------------------------------------------------------
 
 LAYERS = [layer for net in cnn_zoo.NETWORKS.values() for layer in net()] + [
-    jdf.LayerShape("fc-b64", 64, 1000, 4096, 1, 1),
-    jdf.LayerShape("odd", 3, 17, 5, 7, 33, 3, 3)]
+    tdf.LayerShape("fc-b64", 64, 1000, 4096, 1, 1),
+    tdf.LayerShape("odd", 3, 17, 5, 7, 33, 3, 3)]
 
 
-def _tlayer(layer):
-    return tdf.LayerShape(**dataclasses.asdict(layer))
+def _jlayer(layer):
+    return jdf.LayerShape(**dataclasses.asdict(layer))
+
+
+@pytest.mark.parametrize("name", sorted(jcnn.NETWORKS))
+def test_cnn_zoo_equals_reference(name):
+    """The port's layer tables, field by field, and its sparsity tables."""
+    got = [dataclasses.asdict(layer) for layer in cnn_zoo.NETWORKS[name]()]
+    want = [dataclasses.asdict(layer) for layer in jcnn.NETWORKS[name]()]
+    assert got == want
+    assert all(isinstance(layer, tdf.LayerShape)
+               for layer in cnn_zoo.NETWORKS[name]())
+    assert cnn_zoo.ACT_VALUE_SPARSITY[name] == jcnn.ACT_VALUE_SPARSITY[name]
+    assert cnn_zoo.BIT_SPARSITY[name] == jcnn.BIT_SPARSITY[name]
+    assert list(cnn_zoo.NETWORKS) == list(jcnn.NETWORKS)
 
 
 @pytest.mark.parametrize("accel", ["bitparticle", "bitwave", "adas"])
 def test_dataflow_mapping_and_traffic_equal_reference(accel):
-    for layer in LAYERS:
-        tl = _tlayer(layer)
+    for tl in LAYERS:
+        layer = _jlayer(tl)
         assert [dataclasses.asdict(m) for m in tdf.enumerate_mappings(tl)] \
             == [dataclasses.asdict(m) for m in jdf.enumerate_mappings(layer)]
         jm = jdf.choose_mapping(layer)
@@ -201,9 +215,9 @@ def test_dataflow_mapping_and_traffic_equal_reference(accel):
         assert tt.cache_energy_pj(accel) == jt.cache_energy_pj(accel)
         assert tt.dram_energy_pj() == jt.dram_energy_pj()
     for name, net in cnn_zoo.NETWORKS.items():
-        jrows, jutil = jdf.network_mapping_report(net())
-        trows, tutil = tdf.network_mapping_report(
-            [_tlayer(layer) for layer in net()])
+        jrows, jutil = jdf.network_mapping_report(
+            [_jlayer(layer) for layer in net()])
+        trows, tutil = tdf.network_mapping_report(net())
         assert tutil == jutil, name
         assert [dataclasses.asdict(m) for _, m in trows] == \
             [dataclasses.asdict(m) for _, m in jrows]

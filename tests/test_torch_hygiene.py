@@ -14,7 +14,9 @@ refuses what it does not implement yet.
   * the kernel wrappers refuse what their kernels do not take instead of
     falling back;
   * ``chip_smoke.py`` exits nonzero and prints no result without a GPU or
-    outside a checkout.
+    outside a checkout;
+  * the dry run (``launch/dryrun.py``) never initializes CUDA: it runs on
+    the meta device, from its command line too.
 """
 
 import ast
@@ -100,7 +102,15 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                  "repro_torch.data.pipeline",
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.runtime.fault_tolerance",
-                 "repro_torch.distributed.compression"):
+                 "repro_torch.distributed.compression",
+                 "repro_torch.distributed.quasi_sync",
+                 "repro_torch.distributed.pipeline",
+                 "repro_torch.distributed.sharding",
+                 "repro_torch.runtime.elastic",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.op_analysis",
+                 "repro_torch.launch.mesh",
+                 "repro_torch.configs.cnn_zoo"):
         assert name in walked, name
 
 
@@ -120,6 +130,35 @@ def _imported_roots(path: pathlib.Path):
 def test_no_source_imports_jax_or_repro(path):
     # statically, so that imports inside functions are caught too
     assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+def test_dryrun_never_initializes_cuda(monkeypatch, tmp_path):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the dry run touched CUDA")
+
+    for name in ("_lazy_init", "init", "current_device", "device_count",
+                 "is_available", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, refuse)
+    mesh = make_mesh((2, 4), ("data", "model"), "meta")
+    cfg = get_arch("qwen2-1.5b").reduced()
+    for kind in ("train", "prefill", "decode"):
+        rec = dryrun.run_cell("qwen2-1.5b", ShapeConfig(kind, 64, 32, kind),
+                              out_dir=None, verbose=False, mesh=mesh,
+                              cfg=cfg, variant="" if kind == "train"
+                              else "int8")
+        assert rec["ok"], rec.get("traceback")
+        assert rec["n_devices"] == 8
+    # the command line, on a full-size cell of the production mesh
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
+                     "--out", str(tmp_path)])
+    assert done.value.code == 0
+    assert (tmp_path / "qwen2-1.5b__decode_32k__pod16x16.json").exists()
+    assert not torch.cuda.is_initialized()
 
 
 @pytest.fixture
