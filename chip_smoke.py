@@ -179,6 +179,30 @@ are missing.  Phases, one JSON line each:
                near-tie flips, each reported.  Reports per mesh step
                p50/p90, decode tokens/s beside the single-device serve's,
                K1 launches per shard and peak memory;
+  serve_modes  the configurations ``examples_torch/serve_lm.py`` exposes,
+               through its own functions on the same qwen2 weights and
+               its own workload (8 requests on 4 slots, 32-token prompts,
+               up to 24 new tokens, Poisson arrivals at 0.3 a step, lead
+               window 4): bp_approx on the slab store with an int8 KV
+               cache (tokens equal ``generate()``'s but reported near-ties,
+               K1 exactly per route, the positions agreeing with a bp_exact
+               serve counted), bf16 on the paged store with a bf16 KV
+               cache (the same weights unquantized; tokens equal
+               ``generate()``'s but near-ties, K1 never, K2 once per layer
+               per decode step) and bp_exact at temperature 0.8 twice
+               (identical streams, tokens in the padded vocabulary).  Each
+               serve reports decode tokens/s, step p50/p90, TTFT p50, peak
+               memory and launches; K1's approximate and exact GEMV chains
+               of one layer at the decode rows are timed beside the bp_approx
+               decode step;
+  examples     each ``examples_torch`` script's ``main`` on the card at its
+               small defaults: serve_lm in bp_approx with ``--probe 2
+               --metrics`` (under build/), estimate_deployment
+               ``--measured`` on that file, quickstart (K1 once, equal to
+               its plain version), train_lm for 6 steps with
+               ``--compress-grads`` in a temporary directory, resumed to
+               step 8, and the front door with one replica and its drive;
+               any failure fails the script;
   serve_rwkv   the third main path, after the qwen2 weights are freed:
                full-width rwkv6-7b cut to 12 of its 32 layers
                (``RWKV_SERVE_LAYERS``, for the 1200 s limit; random weights
@@ -3280,6 +3304,293 @@ def phase_serve_mesh(torch, gpu, model, paged_base, paged_toks, serve_base,
                  "state_shape": state_shape}
 
 
+def _lm_serve(torch, serve_lm, engine, workload, args):
+    """One measured serve of serve_lm's workload through its own ``run``,
+    after its warm-up: the launch counts are zeroed just before and read
+    just after.  Returns the report, the step stream, the tokens by
+    request and the serve's figures."""
+    from repro_torch import serving
+    serve_lm.warm_up(engine, workload, args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    report, stream = serve_lm.run(engine, workload, args, warmup=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    no_fault_guard(report, stream, "serve_modes")
+    step_ms = [1e3 * r["wall_s"] for r in stream if r["kind"] == "decode"]
+    p = serving.percentiles(step_ms, qs=(50, 90))
+    toks = {r.request_id: r.tokens.tolist() for r in report.results}
+    fig = {"mode": args.mode, "cache_backend": args.cache_backend,
+           "kv_cache_int8": engine.cfg.kv_cache_int8,
+           "temperature": args.temperature, "wall_s": wall,
+           "prefill_calls": sum(1 for r in stream if r["kind"] == "prefill"),
+           "decode_steps": report.steps,
+           "total_new_tokens": report.total_new_tokens,
+           "decode_tokens_per_s": report.decode_tokens_per_s,
+           "decode_step_ms_p50": p["p50"] if p else None,
+           "decode_step_ms_p90": p["p90"] if p else None,
+           "ttft_ms_p50": (1e3 * report.ttft_wall["p50"]
+                           if report.ttft_wall else None),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches,
+           "finish_reasons": sorted({r.finish_reason
+                                     for r in report.results})}
+    return report, stream, toks, fig
+
+
+def _generate_flips(torch, np, engine, workload, toks):
+    """``generate()`` of every prompt in one static batch (serve_lm's
+    prompts share one length) against the serve's streams, each cut to
+    its request's length: each parting stream with its top-2 margin
+    (``_flip``)."""
+    gen = engine.generate({"tokens": workload.prompts},
+                          max_new_tokens=int(workload.max_new.max()),
+                          cache_T=workload.cache_T).tokens
+    flips = []
+    for i, prompt in enumerate(workload.prompts):
+        g = gen[i][:int(workload.max_new[i])].tolist()
+        if g != toks[i]:
+            flips.append(_flip(torch, np, engine, prompt, toks[i], g,
+                               workload.cache_T, i))
+    return flips
+
+
+def phase_serve_modes(torch, gpu, model, flush):
+    """serve_lm's configurations at full width: its own functions
+    (``parse_args``, ``build_engine``, ``make_workload``, ``warm_up``,
+    ``run``) on ``build_model``'s qwen2-1.5b with serve_lm's workload (8
+    requests on 4 slots, 32-token prompts, up to 24 new tokens, Poisson
+    arrivals at 0.3 a step from ``default_rng(0)``, lead window 4).
+    bp_approx on the slab store with an int8 KV cache, greedy: tokens equal
+    ``generate()``'s but reported near-ties, K1 exactly as the step stream
+    predicts per route, the positions that agree with a bp_exact serve of
+    the same workload (a figure).  bf16 on the paged store with a bf16 KV
+    cache (the float weights ``build_model`` quantized, drawn again from
+    seed 0), greedy: tokens equal ``generate()``'s but near-ties, K1 never,
+    K2 once per layer per decode step.  bp_exact on the slab store at
+    temperature 0.8, twice: identical streams, every token in the padded
+    vocabulary the logits span.  Also K1's approximate and exact GEMV
+    chains of one layer at the decode rows, timed, and their share of a
+    decode step."""
+    import numpy as np
+    import serve_lm     # examples_torch/serve_lm.py
+
+    from repro_torch.models import api
+
+    cfg, L = model["cfg"], model["cfg"].num_layers
+    out = {"phase": "serve_modes", "gpu": gpu, "model": cfg.name,
+           "layers": L, "d_model": cfg.d_model, "serves": {}}
+    t_phase = time.perf_counter()
+
+    def args_for(mode, backend, temperature):
+        return serve_lm.parse_args(["--mode", mode, "--cache-backend",
+                                    backend, "--temperature",
+                                    str(temperature)])
+
+    # -- bp_approx, slab, int8 KV, greedy; then bp_exact on the same
+    args = args_for("bp_approx", "slab", 0.0)
+    workload = serve_lm.make_workload(cfg, args)
+    engine = serve_lm.build_engine(cfg, model["params"], args)
+    check(engine.cfg.matmul_mode == "bp_approx"
+          and engine.cfg.kv_cache_int8, "serve_modes: the bp_approx engine")
+    _, stream, approx_toks, fig = _lm_serve(torch, serve_lm, engine,
+                                            workload, args)
+    routes, _ = matmul_routes(stream, 7 * L)
+    fig["expected_launches_by_route"] = routes
+    fig["generate_flips"] = _generate_flips(torch, np, engine, workload,
+                                            approx_toks)
+    reset_counts()
+    exact_args = args_for("bp_exact", "slab", 0.0)
+    exact = serve_lm.build_engine(cfg, model["params"], exact_args)
+    exact_rep, _ = serve_lm.run(exact, workload, exact_args)
+    exact_toks = {r.request_id: r.tokens.tolist()
+                  for r in exact_rep.results}
+    agree = total = 0
+    for i, want in exact_toks.items():
+        got = approx_toks[i]
+        total += max(len(got), len(want))
+        agree += sum(a == b for a, b in zip(got, want))
+    fig["positions_agreeing_with_bp_exact"] = [agree, total]
+    out["serves"]["bp_approx"] = fig
+    del engine, exact
+    # K1's share of a bp_approx decode step: one layer's seven GEMVs at
+    # the decode rows, approximate and exact, times the layers, over the
+    # step's p50
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    chains = {}
+    for name, approx in (("approx", True), ("exact", False)):
+        ms, plain_ms, bound_ms, bound_by, err, _ = time_chain(
+            torch, flush, gen, args.slots, QWEN_LAYER_KN, approx=approx)
+        chains[name] = {"layer_ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "max_abs_err": err}
+    share = L * chains["approx"]["layer_ms"] / fig["decode_step_ms_p50"]
+    out["k1_decode_gemv"] = {"m": args.slots, **chains,
+                             "approx_share_of_decode_step_p50": share}
+    emit({**out, "partial": "bp_approx"})
+    la = fig["launches"]
+    check(all(la[f"bp_matmul_{r}"] == n for r, n in routes.items())
+          and la["bp_matmul"] == sum(routes.values())
+          and la["paged_attention"] == 0,
+          f"serve_modes bp_approx: K1 launched {la}, expected {routes}")
+    bad = [f for f in fig["generate_flips"] if not f["near_tie"]]
+    check(not bad, f"serve_modes bp_approx: generate() differs from serve() "
+                   f"beyond a near-tie: {bad}")
+    check(max(chains["approx"]["max_abs_err"],
+              chains["exact"]["max_abs_err"]) == 0.0,
+          f"serve_modes: K1's decode chain disagrees with its plain version "
+          f"{chains}")
+
+    # -- bf16, paged, bf16 KV, greedy: the float weights
+    args = args_for("bf16", "paged", 0.0)
+    with torch.no_grad():
+        params = api.init(cfg.replace(matmul_mode="bf16"), seed=0,
+                          device="cuda")
+    engine = serve_lm.build_engine(cfg, params, args)
+    check(engine.cfg.matmul_mode == "bf16" and not engine.cfg.kv_cache_int8,
+          "serve_modes: the bf16 engine")
+    rep, _, toks, fig = _lm_serve(torch, serve_lm, engine, workload, args)
+    fig["expected_paged_attention"] = L * rep.steps
+    fig["generate_flips"] = _generate_flips(torch, np, engine, workload,
+                                            toks)
+    out["serves"]["bf16"] = fig
+    del engine, params
+    torch.cuda.empty_cache()
+    lb = fig["launches"]
+    check(lb["bp_matmul"] == 0, f"serve_modes bf16: K1 launched {lb}")
+    check(lb["paged_attention"] == L * rep.steps,
+          f"serve_modes bf16: K2 launched {lb['paged_attention']} times, "
+          f"expected {L} x {rep.steps} decode steps")
+    bad = [f for f in fig["generate_flips"] if not f["near_tie"]]
+    check(not bad, f"serve_modes bf16: generate() differs from serve() "
+                   f"beyond a near-tie: {bad}")
+
+    # -- bp_exact, slab, temperature 0.8, twice with the same seeds
+    args = args_for("bp_exact", "slab", 0.8)
+    engine = serve_lm.build_engine(cfg, model["params"], args)
+    _, _, toks, fig = _lm_serve(torch, serve_lm, engine, workload, args)
+    again, _ = serve_lm.run(engine, workload, args, warmup=False)
+    toks_again = {r.request_id: r.tokens.tolist() for r in again.results}
+    flat = [t for ts in toks.values() for t in ts]
+    fig["identical_streams"] = toks == toks_again
+    fig["tokens_past_vocab_size"] = sum(t >= cfg.vocab_size for t in flat)
+    out["serves"]["bp_exact_sampled"] = fig
+    del engine
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    check(fig["identical_streams"], "serve_modes: two sampled serves with "
+                                    "the same seeds differ")
+    check(all(0 <= t < cfg.vocab_padded for t in flat),
+          "serve_modes: a sampled token lies outside the vocabulary")
+    totals = {k: sum(f["launches"][k] for f in out["serves"].values())
+              for k in out["serves"]["bf16"]["launches"]}
+    return out, totals
+
+
+def _example(torch, name, argv):
+    """``examples_torch/<name>.py``'s ``main(argv)`` on the card, its
+    printout captured: (what main returned, the run's record).  A raise or
+    an exit fails the phase."""
+    import contextlib
+    import importlib
+    import io
+    mod = importlib.import_module(name)
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ret = mod.main(argv)
+        torch.cuda.synchronize()
+    except (Exception, SystemExit) as e:
+        raise CheckFailed(f"examples: {name} {argv} failed: "
+                          f"{type(e).__name__}: {e}\n"
+                          f"{buf.getvalue()[-2000:]}") from e
+    text = buf.getvalue()
+    return ret, {"argv": argv, "wall_s": time.perf_counter() - t0,
+                 "launches": launch_counts(),
+                 "last_lines": text.splitlines()[-4:], "text": text}
+
+
+def phase_examples(torch, gpu):
+    """Each ``examples_torch`` script's ``main`` on the card at its small
+    defaults: serve_lm in bp_approx with the probe every 2 steps writing
+    its JSONL under build/, estimate_deployment ``--measured`` on that
+    file, quickstart, train_lm for 6 steps with compressed gradients in a
+    temporary directory under build/ and then resumed to step 8, and the
+    front door with one replica and its drive."""
+    import math
+    import shutil
+    import tempfile
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    out = {"phase": "examples", "gpu": gpu, "runs": {}}
+    t_phase = time.perf_counter()
+    runs = out["runs"]
+    jsonl = build / "examples_serve_lm.jsonl"
+    jsonl.unlink(missing_ok=True)
+    report, runs["serve_lm"] = _example(
+        torch, "serve_lm", ["--mode", "bp_approx", "--probe", "2",
+                            "--metrics", str(jsonl)])
+    runs["serve_lm"]["hw_estimate_records"] = sum(
+        '"hw_estimate"' in line for line in jsonl.read_text().splitlines())
+    runs["serve_lm"]["finish_reasons"] = sorted(
+        {r.finish_reason for r in report.results})
+    rc, runs["estimate_deployment"] = _example(
+        torch, "estimate_deployment", ["--measured", str(jsonl)])
+    runs["estimate_deployment"]["rc"] = rc
+    quick, runs["quickstart"] = _example(torch, "quickstart", [])
+    runs["quickstart"]["kernel_equal"] = quick["kernel_equal"]
+    ckpt = tempfile.mkdtemp(prefix="train_lm_", dir=build)
+    try:
+        common = ["--compress-grads", "--ckpt-dir", ckpt]
+        (end, hist), runs["train_lm"] = _example(
+            torch, "train_lm", ["--steps", "6", "--fresh", *common])
+        (end2, hist2), runs["train_lm_resume"] = _example(
+            torch, "train_lm", ["--steps", "8", *common])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    runs["train_lm"]["losses"] = [l for _, l in hist]
+    runs["train_lm_resume"]["losses"] = [l for _, l in hist2]
+    (seen, reports), runs["frontdoor_server"] = _example(
+        torch, "frontdoor_server", ["--replicas", "1"])
+    runs["frontdoor_server"]["stream_finish"] = [
+        s["finish_reason"] for s in seen["streams"]]
+    runs["frontdoor_server"]["disconnected_tokens"] = len(
+        seen["disconnected"]["tokens"])
+    runs["frontdoor_server"]["cancelled"] = reports["r0"].n_cancelled
+    texts = {k: r.pop("text") for k, r in runs.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    ls, lq = runs["serve_lm"]["launches"], runs["quickstart"]["launches"]
+    check(runs["serve_lm"]["finish_reasons"] == ["length"]
+          and runs["serve_lm"]["hw_estimate_records"] > 0
+          and report.hw_measured is not None and ls["bp_matmul"] > 0,
+          f"examples: serve_lm {runs['serve_lm']}")
+    check(rc == 0 and "measured-traffic deployment estimate" in
+          texts["estimate_deployment"],
+          f"examples: estimate_deployment --measured returned {rc}")
+    check(quick["kernel_equal"] and lq["bp_matmul"] == 1,
+          f"examples: quickstart's kernel {quick['kernel_equal']}, "
+          f"launches {lq}")
+    check(end == 6 and end2 == 8 and [s for s, _ in hist2] == [7, 8]
+          and "resumed from checkpoint at step 6" in texts["train_lm_resume"]
+          and all(math.isfinite(l) for _, l in hist + hist2),
+          f"examples: train_lm ended at {end}, {end2}: {hist} {hist2}")
+    fd = runs["frontdoor_server"]
+    check(fd["stream_finish"] == ["length"] * 3
+          and fd["disconnected_tokens"] == 2 and fd["cancelled"] == 1
+          and fd["launches"]["paged_attention"] > 0,
+          f"examples: frontdoor_server {fd}")
+    totals = {k: sum(r["launches"][k] for r in runs.values())
+              for k in runs["quickstart"]["launches"]}
+    return out, totals
+
+
 def state_layer_summary(torch, flush, shape, launches):
     """The kernels line's numbers for K2s: one decoder layer's call on one
     shard of ``serve_mesh``'s (1, 2) paged serve at its median full-batch
@@ -5440,29 +5751,31 @@ def _leaves(tree):
         yield tree
 
 
-def time_chain(torch, flush, gen, m, kn, library=False):
-    """Calls of the BitParticle matmul (exact, fused dequant) at M = m, one
-    per (K, N) of ``kn``, timed back to back in this run beside the plain
-    version and the bound: (ms, plain_ms, bound_ms, bound_by, max_abs_err,
-    library).  The calls are one dependent chain on the main path, so their
-    bound is the sum of theirs.  With ``library``, also the same chain of
-    ``torch._int_mm`` calls in each weight layout ({layout: ms}; empty
-    where it refuses a shape)."""
+def time_chain(torch, flush, gen, m, kn, library=False, approx=False):
+    """Calls of the BitParticle matmul (exact, or with ``approx`` the
+    approximate mode; fused dequant) at M = m, one per (K, N) of ``kn``,
+    timed back to back in this run beside the plain version and the bound:
+    (ms, plain_ms, bound_ms, bound_by, max_abs_err, library).  The calls
+    are one dependent chain on the main path, so their bound is the sum of
+    theirs.  With ``library``, also the same chain of ``torch._int_mm``
+    calls in each weight layout ({layout: ms}; empty where it refuses a
+    shape)."""
     from repro_torch.kernels.bitparticle_matmul.ops import bp_matmul
     cases = [_rand_case(torch, gen, m, k, n) for k, n in kn]
     err = 0.0
     for a, w, sa, sw in cases:
-        d = bp_matmul(a, w, sa, sw, backend="kernel") - bp_matmul(
-            a, w, sa, sw, backend="plain")
+        d = bp_matmul(a, w, sa, sw, approx=approx, backend="kernel") - \
+            bp_matmul(a, w, sa, sw, approx=approx, backend="plain")
         err = max(err, d.abs().max().item())
 
     def run(backend):
-        return lambda: [bp_matmul(a, w, sa, sw, backend=backend)
+        return lambda: [bp_matmul(a, w, sa, sw, approx=approx,
+                                  backend=backend)
                         for a, w, sa, sw in cases]
 
     ms = time_ms(torch, run("kernel"), flush)
     plain_ms = time_ms(torch, run("plain"), flush, iters=10)
-    bounds = [matmul_bound(m, k, n, False) for k, n in kn]
+    bounds = [matmul_bound(m, k, n, approx) for k, n in kn]
     bound_by = {by for _, by in bounds}
     lib = {}
     fns = [_library_int_mm(torch, a, w) for a, w, _, _ in cases]
@@ -5732,11 +6045,14 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this smoke test needs a "
               "GPU", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
-              f"from a checkout of the repository", file=sys.stderr)
+    if not ((ROOT / "src" / "repro_torch").is_dir()
+            and (ROOT / "examples_torch").is_dir()):
+        print(f"chip_smoke: no src/repro_torch and examples_torch beside "
+              f"{__file__}; run it from a checkout of the repository",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "examples_torch"))
 
     smi = nvidia_smi_line()
     gpu = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -5791,6 +6107,10 @@ def main() -> int:
         mesh_rec, mesh_launches = phase_serve_mesh(
             torch, gpu, model, paged, paged_toks, serve, serve_toks)
         records.append({"serve_mesh": mesh_rec})
+        modes, modes_launches = phase_serve_modes(torch, gpu, model, flush)
+        records.append({"serve_modes": modes})
+        examples, examples_launches = phase_examples(torch, gpu)
+        records.append({"examples": examples})
         del model
         rwkv = build_rwkv(torch)
         serve_rwkv, rwkv_launches, rwkv_shape = phase_serve_rwkv(
@@ -5822,6 +6142,8 @@ def main() -> int:
                  "serve_chaos": chaos_launches,
                  "serve_frontdoor": door_launches,
                  "serve_mesh": mesh_launches,
+                 "serve_modes": modes_launches,
+                 "examples": examples_launches,
                  "serve_rwkv": rwkv_launches,
                  "serve_moe": moe_launches["moonshot-v1-16b-a3b"],
                  "serve_moe_granite": moe_launches["granite-moe-1b-a400m"],

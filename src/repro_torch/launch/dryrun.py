@@ -7,12 +7,21 @@ the meta device, with no card (port of ``repro/launch/dryrun.py``).
 Per cell this writes ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
 with the reference's record keys:
 
-  * ``memory_analysis``: per-device bytes.  ``argument_size`` is the placed
-    state's bytes on the busiest shard, exactly; ``peak_memory`` the
+  * ``memory_analysis``: the busiest shard's bytes.  ``argument_size`` is
+    the placed state's bytes on that shard, exactly; ``peak_memory`` the
     high-water mark of live bytes (``op_analysis``); ``temp_size`` their
     difference;
-  * dot FLOPs (float and int) per device, cross-shard traffic by kind, and
-    MODEL_FLOPS (``models/api.py::model_flops``).
+  * dot FLOPs (float and int) of the busiest shard, cross-shard traffic by
+    kind, and MODEL_FLOPS (``models/api.py::model_flops``).
+
+The reference's ``*_per_device`` keys and ``memory_analysis`` mean one
+device's share of an SPMD program.  Here they mean the busiest shard under
+ONE controller (``"controller": "single"`` in every record): the home
+shard runs everything that is not a sharded kernel call, so on a mesh
+wider than one shard they are not a per-device share and nothing should
+read them as one (the printout labels them ``/home``).  ``per_shard`` maps
+each mesh index (``"i,j"``) to its own dot FLOPs (float and int), argument
+bytes and peak bytes, as ``op_analysis`` attributes them.
 
 The reference lowers and compiles a jitted step; the port runs its eager
 step once on meta tensors (shapes and dtypes, no storage) under
@@ -231,7 +240,7 @@ def run_cell(arch_id: str, shape_name, multi_pod: bool = False,
     base = cfg if cfg is not None else get_arch(arch_id)
     record = {"arch": arch_tag, "shape": shape.name, "mesh": name,
               "base_arch": arch_id, "variant": variant, "ok": False,
-              "device": str(mesh.home)}
+              "controller": "single", "device": str(mesh.home)}
     t0 = time.time()
     try:
         cell = build_cell(arch_id, shape, mesh, variant, cfg=cfg)
@@ -270,6 +279,7 @@ def run_cell(arch_id: str, shape_name, multi_pod: bool = False,
             "collective_counts": res["collective_counts"],
             "top_collectives": res["top_collectives"],
             "model_flops_global": api.model_flops(base, shape),
+            "per_shard": res["per_shard"],
         })
     except Exception as e:  # noqa: BLE001 — record failures as artifacts
         record["error"] = f"{type(e).__name__}: {e}"
@@ -284,9 +294,11 @@ def run_cell(arch_id: str, shape_name, multi_pod: bool = False,
         print(f"[{status}] {tag}  ({record['total_s']}s)", flush=True)
         if record["ok"]:
             ma = record["memory_analysis"]
-            print(f"       dot_flops/dev={record['dot_flops_per_device']:.3e}"
-                  f"  int/dev={record['dot_flops_int_per_device']:.3e}"
-                  f"  peak_mem/dev={ma['peak_memory'] / 2 ** 30:.2f}GiB  "
+            per = "home" if mesh.size > 1 else "dev"
+            print(f"       dot_flops/{per}="
+                  f"{record['dot_flops_per_device']:.3e}"
+                  f"  int/{per}={record['dot_flops_int_per_device']:.3e}"
+                  f"  peak_mem/{per}={ma['peak_memory'] / 2 ** 30:.2f}GiB  "
                   f"coll_bytes="
                   f"{sum(record['collective_bytes'].values()):.3e}",
                   flush=True)

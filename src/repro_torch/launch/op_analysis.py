@@ -44,6 +44,7 @@ import weakref
 from collections import defaultdict
 from typing import Dict
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -246,10 +247,23 @@ class OpAnalysis(TorchDispatchMode):
         return out
 
     # -- results -------------------------------------------------------------
+    def per_shard(self) -> Dict[str, dict]:
+        """Each mesh index's own figures, keyed ``"i,j"``: dot FLOPs (float
+        and int), argument bytes and peak live bytes.  Every index of the
+        mesh appears, those that did no work with zeros."""
+        shape = () if self.mesh is None else tuple(self.mesh.devices.shape)
+        return {",".join(map(str, idx)): {
+            "dot_flops": self.dot_flops.get(idx, 0.0),
+            "dot_flops_int": self.dot_flops_int.get(idx, 0.0),
+            "argument_bytes": self.argument_bytes.get(idx, 0),
+            "peak_bytes": self.peak.get(idx, 0)}
+            for idx in np.ndindex(*shape)}
+
     def result(self) -> dict:
         """The keys of the reference's ``analyze()``, per device: the
         busiest device's dot FLOPs (the home shard under one controller)
-        beside the total over the mesh, and the memory high-water mark."""
+        beside the total over the mesh, and the memory high-water mark;
+        ``per_shard`` holds each mesh index's own figures."""
         devices = set(self.dot_flops) | set(self.dot_flops_int) | {self.home}
         top = sorted(self._contrib.items(), key=lambda kv: -kv[1])
         return {
@@ -269,4 +283,5 @@ class OpAnalysis(TorchDispatchMode):
                 or [0]),
             "peak_bytes_per_device": max(self.peak.values() or [0]),
             "n_ops": self.n_ops,
+            "per_shard": self.per_shard(),
         }

@@ -167,7 +167,8 @@ def mrope_angles(positions3: torch.Tensor, head_dim: int, theta: float,
     cos, sin = rope_angles(positions3, head_dim, theta)   # (3, B, S, half)
     sec_id = torch.repeat_interleave(
         torch.arange(len(sections), device=positions3.device),
-        torch.as_tensor(list(sections), device=positions3.device))
+        torch.as_tensor(list(sections), device=positions3.device),
+        output_size=half)        # a meta tensor cannot count it
     band = torch.arange(half, device=positions3.device)
     return cos[sec_id, ..., band].movedim(0, -1), \
         sin[sec_id, ..., band].movedim(0, -1)

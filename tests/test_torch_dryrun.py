@@ -242,3 +242,68 @@ def test_reduced_moe_train_cell_on_2x4():
     assert rec["n_devices"] == 8 and rec["while_loops"] == 0
     assert rec["model_flops_global"] == 6.0 * cfg.param_count(
         active_only=True) * 4 * 128
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_reduced_vlm_cell_on_meta(kind):
+    """M-RoPE builds on meta: ``mrope_angles``' ``repeat_interleave`` is
+    given its output size, so the qwen2-vl cells run on the meta device."""
+    cfg = get_arch("qwen2-vl-7b").reduced()
+    rec = dryrun.run_cell("qwen2-vl-7b", ShapeConfig(kind, 32, 2, kind),
+                          out_dir=None, verbose=False,
+                          mesh=make_mesh((1, 1), ("data", "model"), "meta"),
+                          cfg=cfg)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["controller"] == "single"
+    assert rec["dot_flops_per_device"] > 0
+
+
+def test_mrope_angles_unchanged_on_cpu():
+    """The meta fix leaves the values bit for bit: each band takes its
+    section's row of ``rope_angles``, as without the output size, and
+    stays within a float32 unit of the reference."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers
+    import numpy as np
+    cfg = get_arch("qwen2-vl-7b").reduced()
+    hd, sec = cfg.resolved_head_dim, cfg.mrope_sections
+    rng = np.random.default_rng(0)
+    pos = np.stack([np.broadcast_to(np.arange(11), (2, 11)),
+                    rng.integers(0, 8, (2, 11)),
+                    rng.integers(0, 8, (2, 11))]).astype(np.int32)
+    got = layers.mrope_angles(torch.from_numpy(pos), hd, cfg.rope_theta, sec)
+    cos, sin = layers.rope_angles(torch.from_numpy(pos), hd, cfg.rope_theta)
+    sec_id = torch.repeat_interleave(torch.arange(3), torch.tensor(sec))
+    band = torch.arange(hd // 2)
+    for g, full in zip(got, (cos, sin)):
+        assert torch.equal(g, full[sec_id, ..., band].movedim(0, -1))
+    want = jlayers.mrope_angles(jnp.asarray(pos), hd, cfg.rope_theta, sec)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2.5e-7,
+                                   atol=1.2e-7)
+
+
+def test_single_controller_accounting_on_2x2():
+    """A reduced train cell on a (2, 2) meta mesh names its accounting:
+    ``per_shard`` holds every index, its argument bytes sum to the placed
+    state's, and the home shard's dot FLOPs are the record's per-device
+    figure (one controller runs the step there)."""
+    cfg = get_arch("qwen2-1.5b").reduced()
+    mesh = make_mesh((2, 2), ("data", "model"), "meta")
+    shape = ShapeConfig("train", 32, 2, "train")
+    rec = dryrun.run_cell("qwen2-1.5b", shape, out_dir=None, verbose=False,
+                          mesh=mesh, cfg=cfg)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["controller"] == "single"
+    per = rec["per_shard"]
+    assert sorted(per) == ["0,0", "0,1", "1,0", "1,1"]
+    placed = _placed_bytes(dryrun.build_cell("qwen2-1.5b", shape, mesh,
+                                             cfg=cfg).arguments, mesh)
+    assert sum(s["argument_bytes"] for s in per.values()) == \
+        sum(placed.values())
+    for idx, n in placed.items():
+        assert per[",".join(map(str, idx))]["argument_bytes"] == n
+    assert per["0,0"]["dot_flops"] == rec["dot_flops_per_device"] > 0
+    assert per["0,0"]["peak_bytes"] == rec["memory_analysis"]["peak_memory"]
+    assert all(s["dot_flops"] < per["0,0"]["dot_flops"]
+               for k, s in per.items() if k != "0,0")

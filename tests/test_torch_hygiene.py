@@ -4,8 +4,9 @@ refuses what it does not implement yet.
   * every module of ``repro_torch`` imports in a process whose import hook
     blocks ``jax`` and ``repro``, and no source file of the package (nor
     ``chip_smoke.py``) names either in an import statement;
-  * the entry points default to ``device="cuda"`` and raise where CUDA is
-    absent, instead of running on the CPU unasked;
+  * the entry points, the examples of ``examples_torch/`` among them,
+    default to ``device="cuda"`` and raise where CUDA is absent, instead of
+    running on the CPU unasked; no example imports ``jax`` or ``repro``;
   * every ``ServeConfig`` feature (the paged store, speculative decoding,
     chunked prefill, the sparsity probe, the telemetry sinks, fault
     injection) builds and serves on the CPU, but a ``mesh_shape``, whose
@@ -124,8 +125,11 @@ def _imported_roots(path: pathlib.Path):
     return roots
 
 
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+
+
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES,
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax_or_repro(path):
     # statically, so that imports inside functions are caught too
@@ -165,6 +169,26 @@ def test_dryrun_never_initializes_cuda(monkeypatch, tmp_path):
 def no_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without CUDA")
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_examples_default_to_cuda_and_raise_without_it(no_cuda, path,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """Each example's ``main`` with no ``--device`` asks for CUDA and raises
+    where it is absent, before any work."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"example_{path.stem}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, spec.name, mod)   # for its dataclasses
+    spec.loader.exec_module(mod)
+    argv = (["--ckpt-dir", str(tmp_path / "ck")] if path.stem == "train_lm"
+            else [])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
+    assert mod.build_parser().parse_args(argv).device == "cuda"
+    assert not (tmp_path / "ck").exists()
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
