@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import quant
 
 MODES = ("bf16", "qat", "bp_exact", "bp_approx")
@@ -117,8 +118,15 @@ def quantized_matmul(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     of the batch.  The epilogue is ``float(acc) * (x_scale * w_scale)`` in
     float32, cast to x.dtype.  A placed ``MeshWeight`` carries its own
     scale slices, and ``w_scale`` is then not read.  Returns (..., N) in
-    x.dtype."""
-    return QuantizedMatmul.apply(x, w, w_scale, mode, backend)
+    x.dtype.
+
+    With a tracer active (``repro_torch.tracing``) the call is a ``dense``
+    span (args ``m``, ``k``, ``n``), timed on the device in a prefill: the
+    activation quantizer, K1 and the dequantizing epilogue."""
+    with (tracing.NULL_SPAN if tracing.local.tracer is None else
+          tracing.device_span("dense", x, k=x.shape[-1], n=w.shape[-1],
+                              m=x.numel() // max(x.shape[-1], 1))):
+        return QuantizedMatmul.apply(x, w, w_scale, mode, backend)
 
 
 class QuantizedGather(torch.autograd.Function):

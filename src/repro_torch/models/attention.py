@@ -5,6 +5,12 @@ KV cache (S >= 1 rows, scalar or per-slot ``cache_len``, int8 scales).
 These are jnp code in the reference, not Pallas kernels, so they stay plain
 PyTorch.  The contractions are written out as einsums with an explicit
 softmax, as in the reference, so the numerics line up with it.
+
+With a tracer active (``repro_torch.tracing``) the score, softmax and value
+part of each attention call (not its projections) is an ``attention`` span,
+timed on the device in a prefill, with args ``rows``, ``q_len`` and
+``kv_len`` (the KV positions the call spans: the slab's or the block
+table's capacity).
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.models import layers
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -50,7 +57,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     chunk: int = 1024,
                     kv_len: Optional[int] = None) -> torch.Tensor:
     """q (B,S,H,D); k/v (B,T,KH,D).  Returns (B,S,H,D).  Online softmax
-    over KV chunks of ``min(chunk, T)`` positions (T must divide)."""
+    over KV chunks of ``min(chunk, T)`` positions (T must divide).  With a
+    tracer active, an ``attention`` span."""
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -59,30 +67,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"T={T} is not a multiple of the chunk {chunk}")
     scale = D ** -0.5
     dev = q.device
-    qr = (q.to(torch.float32) * scale).reshape(B, S, KH, G, D)
-    m = torch.full((B, S, KH, G), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, S, KH, G), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, S, KH, G, D), dtype=torch.float32, device=dev)
-    qpos = q_offset + torch.arange(S, device=dev)
-    for idx in range(T // chunk):
-        ks = k[:, idx * chunk:(idx + 1) * chunk].to(torch.float32)
-        vs = v[:, idx * chunk:(idx + 1) * chunk].to(torch.float32)
-        s = torch.einsum("bskgd,bckd->bskgc", qr, ks)
-        kpos = idx * chunk + torch.arange(chunk, device=dev)
-        mask = torch.ones((S, chunk), dtype=torch.bool, device=dev)
-        if causal:
-            mask &= qpos[:, None] >= kpos[None, :]
-        if kv_len is not None:
-            mask &= kpos[None, :] < kv_len
-        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bskgc,bckd->bskgd", p, vs)
-        m = m_new
-    out = acc / torch.clamp_min(l[..., None], 1e-37)
-    return out.reshape(B, S, H, D).to(q.dtype)
+    with (tracing.NULL_SPAN if tracing.local.tracer is None else
+          tracing.device_span("attention", q, rows=B, q_len=S, kv_len=T)):
+        qr = (q.to(torch.float32) * scale).reshape(B, S, KH, G, D)
+        m = torch.full((B, S, KH, G), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, S, KH, G), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, S, KH, G, D), dtype=torch.float32, device=dev)
+        qpos = q_offset + torch.arange(S, device=dev)
+        for idx in range(T // chunk):
+            ks = k[:, idx * chunk:(idx + 1) * chunk].to(torch.float32)
+            vs = v[:, idx * chunk:(idx + 1) * chunk].to(torch.float32)
+            s = torch.einsum("bskgd,bckd->bskgc", qr, ks)
+            kpos = idx * chunk + torch.arange(chunk, device=dev)
+            mask = torch.ones((S, chunk), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= qpos[:, None] >= kpos[None, :]
+            if kv_len is not None:
+                mask &= kpos[None, :] < kv_len
+            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = (acc * corr[..., None]
+                   + torch.einsum("bskgc,bckd->bskgd", p, vs))
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-37)
+        return out.reshape(B, S, H, D).to(q.dtype)
 
 
 def _cache_len(cache_len, device) -> torch.Tensor:
@@ -106,25 +118,29 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     G = H // KH
     dev = q.device
     scale = D ** -0.5
-    qr = (q.to(torch.float32) * scale).reshape(B, S, KH, G, D)
-    s = torch.einsum("bskgd,btkd->bskgt", qr, k_cache.to(torch.float32))
-    if k_scale is not None:
-        s = s * k_scale.permute(0, 2, 1)[:, None, :, None, :]
-    cl = _cache_len(cache_len, dev)
-    t = torch.arange(T, device=dev)
-    if cl.ndim == 0:
-        lim = cache_len + torch.arange(S, device=dev)               # (S,)
-        valid = (t[None, :] <= lim[:, None])[None, :, None, None, :]
-    else:
-        lim = cl[:, None] + torch.arange(S, device=dev)[None, :]   # (B, S)
-        valid = (t[None, None, :] <= lim[:, :, None])[:, :, None, None, :]
-    s = torch.where(valid, s, NEG_INF)
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
-    if v_scale is not None:
-        p = p * v_scale.permute(0, 2, 1)[:, None, :, None, :]
-    out = torch.einsum("bskgt,btkd->bskgd", p, v_cache.to(torch.float32))
-    return out.reshape(B, S, H, D).to(q.dtype)
+    with (tracing.NULL_SPAN if tracing.local.tracer is None else
+          tracing.device_span("attention", q, rows=B, q_len=S, kv_len=T)):
+        qr = (q.to(torch.float32) * scale).reshape(B, S, KH, G, D)
+        s = torch.einsum("bskgd,btkd->bskgt", qr, k_cache.to(torch.float32))
+        if k_scale is not None:
+            s = s * k_scale.permute(0, 2, 1)[:, None, :, None, :]
+        cl = _cache_len(cache_len, dev)
+        t = torch.arange(T, device=dev)
+        if cl.ndim == 0:
+            lim = cache_len + torch.arange(S, device=dev)           # (S,)
+            valid = (t[None, :] <= lim[:, None])[None, :, None, None, :]
+        else:
+            lim = cl[:, None] + torch.arange(S, device=dev)[None, :]  # (B,S)
+            valid = (t[None, None, :]
+                     <= lim[:, :, None])[:, :, None, None, :]
+        s = torch.where(valid, s, NEG_INF)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+        if v_scale is not None:
+            p = p * v_scale.permute(0, 2, 1)[:, None, :, None, :]
+        out = torch.einsum("bskgt,btkd->bskgd", p,
+                           v_cache.to(torch.float32))
+        return out.reshape(B, S, H, D).to(q.dtype)
 
 
 def decode_positions(cache_len, B: int, S: int = 1,
@@ -213,9 +229,14 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, cache_len, *,
     or its plain version per ``backend`` (the config's matmul backend),
     split over ``mesh``'s shards when one is given."""
     from repro_torch.kernels.paged_attention.ops import paged_attention
-    out = paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
-                          block_tables, cache_len, k_scale_pages=k_scale,
-                          v_scale_pages=v_scale, backend=backend, mesh=mesh)
+    with (tracing.NULL_SPAN if tracing.local.tracer is None else
+          tracing.device_span("attention", q, rows=q.shape[0], q_len=1,
+                              kv_len=block_tables.shape[1]
+                              * k_pages.shape[1])):
+        out = paged_attention(q[:, 0].contiguous(), k_pages, v_pages,
+                              block_tables, cache_len, k_scale_pages=k_scale,
+                              v_scale_pages=v_scale, backend=backend,
+                              mesh=mesh)
     return out[:, None]
 
 

@@ -383,10 +383,11 @@ class PagedCacheManager(BaseCacheManager):
             raise ValueError(f"slot {slot} must be alloc()ed before insert")
         if tokens is None:
             raise ValueError("paged insert needs the prompt tokens")
-        toks = [int(t) for t in tokens][:length]
         bs = self.block_size
-        full_ids, partial = (self.pool.match_prefix(toks) if share
-                             else ([], None))
+        with self.telemetry.span("match_prefix", n_tokens=int(length)):
+            toks = [int(t) for t in tokens][:length]
+            full_ids, partial = (self.pool.match_prefix(toks) if share
+                                 else ([], None))
         n_counted_hits = len(full_ids) + (1 if partial is not None else 0)
         n_hit = len(full_ids)
         for bid in full_ids:
@@ -438,16 +439,17 @@ class PagedCacheManager(BaseCacheManager):
         # register freshly written FULL blocks; on a same-content collision
         # (two identical prompts in one prefill group) swap to the canonical
         # block so the copies share
-        for j in range(skip, n_total if share else skip):
-            if (j + 1) * bs > length:
-                break   # trailing partial block: content not yet final
-            key, canon = self.pool.register(keys[j], tuple(
-                toks[j * bs:(j + 1) * bs]), table[j])
-            if canon != table[j]:
-                self.pool.incref(canon)
-                self.pool.decref(table[j])
-                table[j] = canon
-            keys.append(key)
+        with self.telemetry.span("register", n_blocks=n_total - skip):
+            for j in range(skip, n_total if share else skip):
+                if (j + 1) * bs > length:
+                    break   # trailing partial block: content not yet final
+                key, canon = self.pool.register(keys[j], tuple(
+                    toks[j * bs:(j + 1) * bs]), table[j])
+                if canon != table[j]:
+                    self.pool.incref(canon)
+                    self.pool.decref(table[j])
+                    table[j] = canon
+                keys.append(key)
         self.tables[slot, :n_total] = table
         self.tables[slot, n_total:] = TRASH_BLOCK
         self._n_blocks_of[slot] = n_total

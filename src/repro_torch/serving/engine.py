@@ -32,10 +32,13 @@ every dense weight to int8 + per-channel scale once, at construction.
 Observability: a ``Telemetry`` handle (``ServeConfig.telemetry``) writes
 the step records as JSONL, the spans as a Chrome trace and, with
 ``profile_dir``, a ``torch.profiler`` trace per serve; the report is a pure
-fold of the records.  A ``SparsityProbe`` (``ServeConfig.probe``, dense or
-MoE family in a bp_* mode) runs probed steps that measure the int8
-activations' bit and value sparsity on the device, and prices each sample
-through the paper's cost models into an ``hw_estimate`` record
+fold of the records.  The model's spans inside a prefill get their
+device time after the prefill's synchronize; each step record counts the
+K1 and K2 launches since the previous one.  A ``SparsityProbe``
+(``ServeConfig.probe``, dense or MoE family in a bp_* mode) runs probed
+steps that measure the int8 activations' bit and value sparsity on the
+device, and prices each sample through the paper's cost models into an
+``hw_estimate`` record
 (``ServeReport.hw_measured``); ``ServeReport.deployment`` prices the int8
 weights alone.
 
@@ -84,7 +87,9 @@ import torch
 from repro_torch.core import cost_model as cost
 from repro_torch.core.sparsity import per_layer_counts, sm_bit_counts
 from repro_torch.device import resolve_device
+from repro_torch.kernels.bitparticle_matmul import ops as k1_ops
 from repro_torch.kernels.build import KernelError
+from repro_torch.kernels.paged_attention import ops as k2_ops
 from repro_torch.models import api
 from repro_torch.models.layers import quantize_dense_params
 from repro_torch.serving.block_pool import NoFreeBlocks, PagedCacheManager
@@ -200,6 +205,13 @@ def tokens_per_second(n_tokens: int, decode_s: float, prefill_s: float = 0.0,
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _launches() -> Tuple[int, int]:
+    """(K1, K2) launches so far in this process (K2: both variants)."""
+    return (k1_ops.LAUNCHES["bp_matmul"],
+            k2_ops.LAUNCHES["paged_attention"]
+            + k2_ops.LAUNCHES["paged_attention_state"])
 
 
 @dataclasses.dataclass
@@ -331,6 +343,7 @@ class ServeLoop:
         self._wall0 = time.perf_counter()
         self._h2d_mark = int(self.tel.counters.get("h2d_bytes", 0))
         self._d2h_mark = int(self.tel.counters.get("d2h_bytes", 0))
+        self._launch_mark = _launches()
         # fault injection rides the config like telemetry; the executor
         # gets the handle before any cache op can fire a check
         self.faults: FaultInjector = (self.serve_cfg.faults
@@ -511,6 +524,12 @@ class ServeLoop:
         out = (h2d - self._h2d_mark, d2h - self._d2h_mark)
         self._h2d_mark, self._d2h_mark = h2d, d2h
         return out
+
+    def _launch_deltas(self) -> dict:
+        """K1 and K2 launches since the previous step record."""
+        (k1, k2), (m1, m2) = _launches(), self._launch_mark
+        self._launch_mark = (k1, k2)
+        return {"k1_launches": k1 - m1, "k2_launches": k2 - m2}
 
     def _pool_gauges(self) -> dict:
         """Block-pool gauges for one step record (zeros on the slab store).
@@ -852,9 +871,11 @@ class ServeLoop:
                 prompt_lens=lens if self.ragged else None,
                 **({"probed": True} if probed else {}))
             _sync(self.executor.device)
+            self.tel.resolve_device_spans()
             return out
 
-        with self.tel.span("prefill", group_size=len(group), pad_to=pad_to):
+        with self.tel.span("prefill", group_size=len(group), pad_to=pad_to,
+                           prompt_tokens=int(lens.sum())):
             logits, cache, *stats = self._dispatch("prefill", dispatch)
         wall = time.perf_counter()
         dispatch_s = wall - t0
@@ -868,8 +889,10 @@ class ServeLoop:
                     if req.replay:
                         tok = req.replay.pop(0)
                     else:
-                        arr = engine._sample(logits[j:j + 1],
-                                             sample_seed(req.request_id, 0))
+                        with self.tel.span("sample"):
+                            arr = engine._sample(
+                                logits[j:j + 1],
+                                sample_seed(req.request_id, 0))
                         self.tel.count("d2h_bytes", arr.nbytes)
                         tok = int(arr[0])
                     self._append_token(req, tok, wall)
@@ -912,7 +935,7 @@ class ServeLoop:
                    new_sync=bool(new_sync),
                    active_slots=int(self.cm.n_active),
                    h2d_bytes=h2d, d2h_bytes=d2h,
-                   **self._pool_gauges())
+                   **self._launch_deltas(), **self._pool_gauges())
         if probe_stats is not None:
             self._emit_hw(probe_stats, "prefill",
                           n_tokens=int(lens.sum()) + n_emitted)
@@ -1053,7 +1076,7 @@ class ServeLoop:
                    occupancy=occupancy, divergence=divergence,
                    committed_tokens=int(n_committed),
                    h2d_bytes=h2d, d2h_bytes=d2h,
-                   **self._pool_gauges())
+                   **self._launch_deltas(), **self._pool_gauges())
         if probe_stats is not None:
             self._emit_hw(probe_stats, "decode", n_tokens=n_committed)
 
@@ -1267,7 +1290,7 @@ class ServeLoop:
                    drafted_tokens=int(self.n_drafted - drafted0),
                    accepted_tokens=int(self.n_accepted - accepted0),
                    h2d_bytes=h2d, d2h_bytes=d2h,
-                   **self._pool_gauges())
+                   **self._launch_deltas(), **self._pool_gauges())
         if probe_stats is not None:
             self._emit_hw(probe_stats, "verify",
                           n_tokens=n_committed + n_chunk_fed)
@@ -1275,10 +1298,12 @@ class ServeLoop:
     # -- live submission ----------------------------------------------------
 
     def submit(self, request: Request) -> None:
-        """Thread-safe dynamic submission for :meth:`run_forever`."""
+        """Thread-safe dynamic submission for :meth:`run_forever`; stamps
+        ``wall_received_at``."""
         with self._inbox_lock:
             if self._closed:
                 raise RuntimeError("serve loop is closed; cannot submit")
+            request.wall_received_at = time.perf_counter()
             self._inbox.append(request)
 
     def close(self) -> None:
@@ -1351,6 +1376,9 @@ class ServeLoop:
                           else req.wall_admitted_at - req.wall_submitted_at)
             ttft_wall = (None if req.wall_submitted_at is None or not wt
                          else wt[0] - req.wall_submitted_at)
+            inbox_wait = (None if req.wall_received_at is None
+                          or req.wall_submitted_at is None
+                          else req.wall_submitted_at - req.wall_received_at)
             self._emit("request", step=step,
                        request_id=int(req.request_id),
                        slo_class=str(req.slo_class),
@@ -1358,6 +1386,7 @@ class ServeLoop:
                        n_tokens=int(len(req.tokens)),
                        queue_wait_s=queue_wait,
                        ttft_wall_s=ttft_wall,
+                       inbox_wait_s=inbox_wait,
                        itl_wall_s=[b - a for a, b in zip(wt, wt[1:])])
 
     def _step(self):

@@ -31,6 +31,13 @@ replicated layout (its slab cache's sequence split over "model" is not
 mirrored: the results are the same).  Every shard lies on one device (see
 ``launch/mesh.py``).
 
+Tracing: each prefill and each decode or verify step makes the
+telemetry's tracer the active one (``repro_torch.tracing``) while it runs,
+so the model's ``attention`` and ``dense`` spans land in the loop's trace,
+timed on the device in a prefill and host spans in a step; a decode or
+verify step is a ``decode_forward`` span, the host's enqueue of the
+forward and the sampling up to the loop's synchronizing read.
+
 Fault injection: a serve loop attaches its ``FaultInjector``
 (:meth:`set_faults`); the prefill checks the ``prefill`` site, the decode
 and verify functions the ``step`` site and then ``slow`` (a latency
@@ -57,6 +64,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bitparticle_matmul.ops import place_weight
 from repro_torch.launch.mesh import Mesh, make_local_mesh
@@ -191,11 +199,14 @@ class SingleDeviceExecutor:
         ``vision_mask``, ``src_embeds``) go to the device with it."""
         self._require_params()
         self.faults.check("prefill")
-        b = {k: self.put(v, _INPUT_DTYPES.get(k)) for k, v in batch.items()}
-        lens = None if prompt_lens is None else self.put(prompt_lens,
-                                                         torch.long)
-        entry = api.prefill_probed if probed else api.prefill
-        return entry(self._params, self.cfg, b, cache_T, prompt_lens=lens)
+        with tracing.activate(self.telemetry.tracer, device=True):
+            b = {k: self.put(v, _INPUT_DTYPES.get(k))
+                 for k, v in batch.items()}
+            lens = None if prompt_lens is None else self.put(prompt_lens,
+                                                             torch.long)
+            entry = api.prefill_probed if probed else api.prefill
+            return entry(self._params, self.cfg, b, cache_T,
+                         prompt_lens=lens)
 
     def decode_sample_fn(self, temperature: float, paged: bool = False,
                          probed: bool = False):
@@ -218,12 +229,16 @@ class SingleDeviceExecutor:
         def fn(cache, step, seeds, counts):
             self.faults.check("step")
             self.faults.delay()
-            b = self._step_batch(cache, step, paged)
-            logits, cache, *stats = decode(self._params, self.cfg, b)
-            logits = self._poison(logits, step)
-            draw = (None if temperature <= 0 else
-                    [sample_seed(s, c) for s, c in zip(seeds, counts)])
-            return (sample_tokens(logits, temperature, draw), cache, *stats)
+            with tracing.activate(self.telemetry.tracer), \
+                    self.telemetry.span("decode_forward",
+                                        rows=len(step["tokens"]), q_len=1):
+                b = self._step_batch(cache, step, paged)
+                logits, cache, *stats = decode(self._params, self.cfg, b)
+                logits = self._poison(logits, step)
+                draw = (None if temperature <= 0 else
+                        [sample_seed(s, c) for s, c in zip(seeds, counts)])
+                return (sample_tokens(logits, temperature, draw), cache,
+                        *stats)
 
         return fn
 
@@ -247,12 +262,16 @@ class SingleDeviceExecutor:
         def fn(cache, step):
             self.faults.check("step")
             self.faults.delay()
-            b = self._step_batch(cache, step, paged)
-            logits, cache, *stats = verify(self._params, self.cfg, b)
-            logits = self._poison(logits, step)
-            B, S, V = logits.shape
-            tok = sample_tokens(logits.reshape(B * S, V), 0.0)
-            return (tok.reshape(B, S), cache, *stats)
+            rows, q_len = np.shape(step["tokens"])
+            with tracing.activate(self.telemetry.tracer), \
+                    self.telemetry.span("decode_forward", rows=rows,
+                                        q_len=q_len):
+                b = self._step_batch(cache, step, paged)
+                logits, cache, *stats = verify(self._params, self.cfg, b)
+                logits = self._poison(logits, step)
+                B, S, V = logits.shape
+                tok = sample_tokens(logits.reshape(B * S, V), 0.0)
+                return (tok.reshape(B, S), cache, *stats)
 
         return fn
 

@@ -113,6 +113,10 @@ class Request:
     # ServeReport latency percentiles (TTFT / inter-token)
     wall_submitted_at: Optional[float] = None
     wall_admitted_at: Optional[float] = None
+    # when ``ServeLoop.submit`` took the request into the loop's inbox (a
+    # request the loop was built with has none): its wait there, until the
+    # loop moves it to the queue, is the ``request`` record's inbox_wait_s
+    wall_received_at: Optional[float] = None
     wall_token_times: List[float] = dataclasses.field(default_factory=list)
 
     def __post_init__(self):

@@ -5,10 +5,13 @@
     schema-versioned record per prefill / decode / verify step plus the
     lifecycle, fault-ladder and ``hw_estimate`` records
     (:data:`STEP_SCHEMA`, the reference's golden key sets).
-  * :class:`Tracer`: Chrome-trace-event JSON ("X" complete events) around
-    admission, prefill, draft, verify, commit, preemption and block-pool
-    operations; the file loads in https://ui.perfetto.dev.  With
-    ``annotate_device=True`` every span also enters
+  * :class:`Tracer` (``repro_torch.tracing``): Chrome-trace-event JSON
+    ("X" complete events) around admission, prefill, draft, verify,
+    commit, preemption and block-pool operations, and, while the executor
+    runs a step, around the model's attention and dense projections (with
+    their device time in a prefill); the file loads in
+    https://ui.perfetto.dev, on the clock of a ``torch.profiler`` trace.
+    With ``annotate_device=True`` every span also enters
     ``torch.profiler.record_function`` so host spans line up with the
     device trace that ``profile_dir`` captures.
   * :func:`reduce_stream`: the PURE fold from step records to the
@@ -28,14 +31,14 @@ profiler, the device annotation) raises instead of falling silent.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import os
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from repro_torch.tracing import NULL_SPAN, Tracer  # noqa: F401 (re-export)
 
 SCHEMA_VERSION = 1
 
@@ -44,6 +47,12 @@ SCHEMA_VERSION = 1
 #: Extending a record is fine (consumers must ignore unknown keys);
 #: removing or renaming one of these is a breaking change and must bump
 #: :data:`SCHEMA_VERSION`.
+#: The prefill, decode and verify records also carry ``k1_launches`` and
+#: ``k2_launches`` (additive): the launches of the BitParticle matmul kernel
+#: and of the paged-attention kernel (either variant) since the previous
+#: such record, from the kernels' process-wide ``LAUNCHES`` counters (so
+#: with two serve loops in one process, as replicas on threads, each
+#: loop's records also count the other's launches).
 _STEP_KEYS = {"schema", "kind", "ts_s", "step", "wall_s", "phases",
               "active_slots", "committed_tokens", "h2d_bytes", "d2h_bytes",
               "blocks_in_use", "prefix_hit_blocks", "cow_blocks",
@@ -85,7 +94,9 @@ STEP_SCHEMA: Dict[str, set] = {
     # is wall time from queue entry to admission, ``ttft_wall_s`` from
     # queue entry to first token, ``itl_wall_s`` the request's pairwise
     # inter-token gaps: the raw samples behind the report's per-SLO-class
-    # percentiles, so the file reduction reproduces them exactly
+    # percentiles, so the file reduction reproduces them exactly.
+    # ``inbox_wait_s`` (additive) is wall time from ``ServeLoop.submit`` to
+    # queue entry (None for a request the loop was constructed with)
     "request": {"schema", "kind", "ts_s", "step", "request_id", "slo_class",
                 "finish_reason", "n_tokens", "queue_wait_s", "ttft_wall_s",
                 "itl_wall_s"},
@@ -99,22 +110,6 @@ def percentiles(samples, qs=(50, 90, 99)) -> Optional[Dict[str, float]]:
     if xs.size == 0:
         return None
     return {f"p{q}": float(np.percentile(xs, q)) for q in qs}
-
-
-class _NullSpan:
-    """Shared do-nothing context manager: the disabled-telemetry span (the
-    hot loop allocates nothing per span when tracing is off)."""
-
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-
-NULL_SPAN = _NullSpan()
 
 
 class MetricsLogger:
@@ -144,77 +139,6 @@ class MetricsLogger:
     def __exit__(self, *exc) -> bool:
         self.close()
         return False
-
-
-def _jsonable(v):
-    if isinstance(v, np.integer):
-        return int(v)
-    if isinstance(v, np.floating):
-        return float(v)
-    return v
-
-
-class Tracer:
-    """Chrome-trace-event recorder (complete "X" events, µs timestamps).
-
-    Spans nest by construction: events are emitted on one host thread with
-    monotonic ``time.perf_counter`` stamps, so a child span lies inside its
-    parent.  ``write()`` dumps the standard ``{"traceEvents": [...]}``
-    wrapper that perfetto / chrome://tracing load directly."""
-
-    def __init__(self, *, annotate_device: bool = False):
-        self.events: List[dict] = []
-        self.annotate_device = annotate_device
-        self._t0 = time.perf_counter()
-        self._pid = os.getpid()
-        self.events.append({
-            "name": "process_name", "ph": "M", "pid": self._pid, "tid": 0,
-            "args": {"name": "repro_torch.serving"},
-        })
-
-    def _now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
-
-    @contextlib.contextmanager
-    def span(self, name: str, cat: str = "serving", **args):
-        with contextlib.ExitStack() as stack:
-            if self.annotate_device:
-                import torch.profiler
-                stack.enter_context(torch.profiler.record_function(name))
-            t0 = self._now_us()
-            try:
-                yield self
-            finally:
-                t1 = self._now_us()
-                self.events.append({
-                    "name": name, "cat": cat, "ph": "X", "ts": t0,
-                    "dur": t1 - t0, "pid": self._pid, "tid": 0,
-                    "args": {k: _jsonable(v) for k, v in args.items()},
-                })
-
-    def instant(self, name: str, cat: str = "serving", **args):
-        self.events.append({
-            "name": name, "cat": cat, "ph": "i", "s": "t",
-            "ts": self._now_us(), "pid": self._pid, "tid": 0,
-            "args": {k: _jsonable(v) for k, v in args.items()},
-        })
-
-    def counter(self, name: str, **values):
-        """Chrome-trace counter ("C") sample: perfetto renders one counter
-        track named ``name`` with a series per keyword."""
-        self.events.append({
-            "name": name, "ph": "C", "ts": self._now_us(),
-            "pid": self._pid, "tid": 0,
-            "args": {k: _jsonable(v) for k, v in values.items()},
-        })
-
-    def write(self, path: str):
-        d = os.path.dirname(os.path.abspath(path))
-        if d:
-            os.makedirs(d, exist_ok=True)
-        with open(path, "w", encoding="utf-8") as f:
-            json.dump({"traceEvents": self.events,
-                       "displayTimeUnit": "ms"}, f)
 
 
 class Telemetry:
@@ -261,6 +185,12 @@ class Telemetry:
     def counter(self, name: str, **values):
         if self.tracer is not None:
             self.tracer.counter(name, **values)
+
+    def resolve_device_spans(self) -> None:
+        """Give the spans timed on the device their ``device_s`` (called
+        after a sync: see ``Tracer.resolve_device_spans``)."""
+        if self.tracer is not None:
+            self.tracer.resolve_device_spans()
 
     def emit(self, record: dict):
         if self.metrics is not None:
